@@ -1,12 +1,10 @@
 #!/usr/bin/env python
-"""Repo-root bench entry point (the driver runs `python bench.py`).
-
-Since round 5 this runs the FULL per-config table
-(wavelets_tpu/evidence.py) and emits it inside the one JSON line —
-the driver's BENCH artifact is the authority for every published
-number.  The implementation lives in wavelets_tpu.bench so the
-installed console script (`wavelets-tpu bench`) works outside the repo
-checkout too; `wavelets-tpu bench` keeps the quick headline-only run."""
+"""Repo-root bench entry point: ``python bench.py`` runs the full
+per-config table (wavelets_tpu/evidence.py) on the attached GPU and
+emits it inside one JSON line.  The implementation lives in
+wavelets_tpu.bench so the installed console script
+(``wavelets-tpu bench``, headline rows only) works outside the
+checkout too."""
 
 from wavelets_tpu.bench import main_table
 

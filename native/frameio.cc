@@ -8,7 +8,7 @@
 // (wavelets_tpu/utils/frameio.py).
 //
 // The reference package has no IO layer at all (SURVEY §2: watroo is a
-// pure in-memory library); this is part of the runtime the TPU-native
+// pure in-memory library); this is part of the runtime the accelerator
 // framework adds around the compute core.
 //
 // Build: see native/Makefile (g++ -O3 -shared -fPIC).

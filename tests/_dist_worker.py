@@ -1,7 +1,7 @@
 """Two-process distributed worker (spawned by test_distributed.py).
 
 Each process owns 2 virtual CPU devices; the pair forms a 4-way
-spatial mesh over DCN (Gloo).  Exercises the framework's own
+spatial mesh across the process boundary (Gloo).  Exercises the framework's own
 multi-process entry points: parallel.mesh.init_distributed +
 sharded_decompose / sharded_wow, asserting the gathered results match
 the single-device reference bitwise (decompose) / exactly (wow, same
@@ -49,7 +49,7 @@ img = jnp.asarray(rng.normal(size=(128, 128)).astype(np.float32))
 # decompose: bitwise vs single device
 got = sharded_decompose(img, 3, B3SPLINE, mesh)
 got_g = np.asarray(multihost_utils.process_allgather(got, tiled=True))
-ref = np.asarray(decompose(img, 3, B3SPLINE, use_pallas=False))
+ref = np.asarray(decompose(img, 3, B3SPLINE))
 assert got_g.shape == ref.shape, (got_g.shape, ref.shape)
 assert np.array_equal(got_g, ref), np.abs(got_g - ref).max()
 print(f"proc {pid}: sharded_decompose bitwise OK", flush=True)
@@ -65,7 +65,7 @@ ref_r, _ = wow_core(
     denoise_coefficients=(5.0, 2.0, 0.0, 1.0), bilateral=None,
     bilateral_scaling=False, soft_threshold=True,
     preserve_variance=False, gamma=3.2, gamma_min=None, gamma_max=None,
-    h=0.0, has_noise=False, fuse=False)
+    h=0.0, has_noise=False)
 err = float(np.abs(recon_g - np.asarray(ref_r)).max())
 scale = float(np.abs(np.asarray(ref_r)).max())
 assert err <= 1e-5 * max(scale, 1.0), err

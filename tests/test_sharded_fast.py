@@ -1,19 +1,15 @@
-"""Round-4 sharded fast paths: the mesh engine rides the same Pallas
-kernels as the single-device dispatch (VERDICT r3 item 2).
+"""Sharded WOW against the single-device engine.
 
 Stage 1 — data-axis-only mesh: every shard is whole frames and runs the
-exact `_stack_core` dispatch of wow_stack (fused/merged kernels, in
-interpret mode on the forced CPU test mesh).
+same per-frame program as wow_stack (`_stack_core`).
 
-Stage 2 — spatially tiled mesh: fused decompose+whiten groups on
-halo-extended local blocks (overlap-save), XLA halo chain for the deep
-tail, collective statistics.
+Stage 2 — spatially tiled mesh: the halo-exchange body with collective
+statistics; deep scales whose reach exceeds the tile gather the plane.
 
-Comparisons use the kernel-vs-XLA tolerance convention of
-tests/test_pallas_merged.py (abs diff < 5e-6 · scale): batched/sharded
-program shapes let XLA contract FMAs differently, so bitwise equality
-is not promised across *program* boundaries (cf.
-test_sharded_decompose_batched), only across identical programs."""
+Comparisons use abs diff < 5e-6: batched/sharded program shapes let XLA
+contract FMAs differently, so bitwise equality is not promised across
+*program* boundaries (cf. test_sharded_decompose_batched), only across
+identical programs."""
 
 import jax
 import jax.numpy as jnp
@@ -46,8 +42,7 @@ def _statics(n_scales, weights, dcs, has_noise, min_extent):
 
 def _forced_stack_ref(stack, noise, with_coefficients=True,
                       n_scales=None, weights=(), dcs=()):
-    """Single-device reference: the exact wow_stack dispatch with the
-    Pallas kernels forced (interpret mode on CPU)."""
+    """Single-device reference: the wow_stack program on one device."""
     statics = _statics(n_scales, weights, dcs, noise is not None,
                        min(stack.shape[1:]))
     if noise is not None:
@@ -55,8 +50,7 @@ def _forced_stack_ref(stack, noise, with_coefficients=True,
             jnp.asarray(noise, stack.dtype), (stack.shape[0],))
     else:
         noise_arr = jnp.zeros((stack.shape[0],), stack.dtype)
-    return _stack_core(stack, noise_arr, with_coefficients, statics,
-                       force=True)
+    return _stack_core(stack, noise_arr, with_coefficients, statics)
 
 
 class TestStage1DataAxis:
@@ -74,8 +68,7 @@ class TestStage1DataAxis:
         assert float(jnp.max(jnp.abs(got_p - ref_p))) < 5e-6
 
     def test_matches_wow_stack_semantics(self, rng):
-        """Against the un-forced wow_stack (pure XLA on CPU) — pins the
-        kernels' numerics, not just self-consistency."""
+        """Against the public wow_stack front door."""
         mesh = make_mesh(data=4, rows=1, cols=1,
                          devices=jax.devices()[:4])
         stack = jnp.asarray(
@@ -109,22 +102,20 @@ class TestStage1DataAxis:
                                denoise_coefficients=[5.0, 2.0],
                                with_coefficients=False)
         assert none is None
-        # serving rides the merged kernels, planes mode the kernel
-        # pair — same math, different fusion units
+        # serving drops the plane stores — same math, another program
         assert float(jnp.max(jnp.abs(r1 - r2))) < 5e-6
 
 
 class TestStage2Tiled:
-    """Spatially tiled mesh: fused whiten groups on halo-extended
-    blocks + XLA halo deep tail."""
+    """Spatially tiled mesh: halo-exchange body with collective
+    statistics."""
 
     def _ref_single(self, img, noise, n_scales, dcs):
         statics = _statics(n_scales, (), dcs, noise is not None,
                            min(img.shape))
         noise_arr = (jnp.asarray(noise, img.dtype) if noise is not None
                      else jnp.zeros((), img.dtype))
-        return wow_core(img, noise_arr, fuse="force",
-                        planes_layout="cube", **statics)
+        return wow_core(img, noise_arr, planes_layout="cube", **statics)
 
     def test_tiled_vs_forced_single(self, rng):
         mesh = make_mesh(data=1, rows=2, cols=2,
@@ -139,8 +130,7 @@ class TestStage2Tiled:
         assert float(jnp.max(jnp.abs(got_p - ref_p))) < 5e-6
 
     def test_tiled_vs_xla_semantics(self, rng):
-        """Against the pure XLA single-device path — independent of the
-        kernels on both sides of the comparison."""
+        """Against the public single-device ``wow``."""
         from wavelets_tpu.models.wow import wow
 
         mesh = make_mesh(data=1, rows=2, cols=2,
@@ -164,8 +154,9 @@ class TestStage2Tiled:
         assert float(jnp.max(jnp.abs(got_r - ref_r))) < 5e-6
 
     def test_tiled_serving_bitwise(self, rng):
-        """Serving mode skips the plane writes on the *same* tile plan
-        — the reconstruction is unchanged (within-path contract)."""
+        """Serving mode skips the plane writes — the reconstruction is
+        unchanged up to XLA's fusion of the two programs (the bitwise
+        promise belonged to the removed kernels' shared tile plan)."""
         mesh = make_mesh(data=1, rows=2, cols=2,
                          devices=jax.devices()[:4])
         img = jnp.asarray(
@@ -176,7 +167,7 @@ class TestStage2Tiled:
                                denoise_coefficients=[5.0, 2.0],
                                with_coefficients=False)
         assert none is None
-        assert np.array_equal(np.asarray(r1), np.asarray(r2))
+        assert float(jnp.max(jnp.abs(r1 - r2))) < 5e-6
 
     def test_tiled_batched(self, rng):
         """data × rows×cols mesh over a stack: per-frame statistics on
@@ -196,8 +187,8 @@ class TestStage2Tiled:
             assert d < 5e-6, (i, d)
 
     def test_small_tiles_fall_back(self, rng):
-        """Local blocks under the kernel minimum keep the XLA halo
-        body (no stage-2 dispatch) and still match wow()."""
+        """Small local blocks (deep scales gather the plane) match
+        wow() in float64."""
         from wavelets_tpu.models.wow import wow
 
         mesh = make_mesh(data=1, rows=2, cols=2,
@@ -210,44 +201,24 @@ class TestStage2Tiled:
 
 
 class TestBandDeepTail:
-    """Round-5 sharded deep tail: scales past the whiten groups reshard
-    to full-width row bands (all_to_all over the col ring) and run the
-    halo-mode deep stream kernel — ppermute halos while the reach fits
-    the band, all_gather-built windows past it — instead of the XLA
-    halo chain (VERDICT r4 item 3)."""
+    """Tiled meshes at depths whose reach passes the tile: scales whose
+    halo fits exchange it with ppermute, deeper ones gather the plane
+    (parallel/halo.py)."""
 
     def _ref_single(self, img, noise, n_scales, dcs):
         statics = _statics(n_scales, (), dcs, noise is not None,
                            min(img.shape))
         noise_arr = (jnp.asarray(noise, img.dtype) if noise is not None
                      else jnp.zeros((), img.dtype))
-        return wow_core(img, noise_arr, fuse="force",
-                        planes_layout="cube", **statics)
-
-    def test_band_plan_engages(self):
-        from wavelets_tpu.parallel.sharded import _deep_tail_band_plan
-        from wavelets_tpu.ops.filters import B3SPLINE as SF
-
-        # 512² on 2×2: Hb=128, W=512; tail s=4..6 all stream-feasible
-        assert _deep_tail_band_plan(256, 256, 2, jnp.float32, SF,
-                                    4, 7) == 128
-        # reach gate: scale 4 on a 64-row band is infeasible (hw·D<32
-        # fails at s=3 but 4 is fine; 8-row interior fails stream)
-        assert _deep_tail_band_plan(16, 256, 2, jnp.float32, SF,
-                                    4, 7) == 0
+        return wow_core(img, noise_arr, planes_layout="cube", **statics)
 
     def test_band_tail_deep_vs_single(self, rng):
-        """2×2 mesh, L7 at 512²: tail scales 4 (R=64 < Hb: ppermute
-        halo), 5 (R=128 == Hb), 6 (R=256 > Hb: all_gather window) —
-        exercises the reshard, both extension paths, and the kernel."""
-        from wavelets_tpu.parallel.sharded import _deep_tail_band_plan
-
+        """2×2 mesh, L7 at 512² (256² tiles): reach hw·2^s passes the
+        tile at s = 7."""
         mesh = make_mesh(data=1, rows=2, cols=2,
                          devices=jax.devices()[:4])
         img = jnp.asarray(
             rng.normal(size=(512, 512)).astype(np.float32))
-        assert _deep_tail_band_plan(256, 256, 2, img.dtype, B3SPLINE,
-                                    4, 7) > 0
         ref_r, ref_p = self._ref_single(img, 1.0, 7, [5.0, 2.0])
         got_r, got_p = sharded_wow(img, mesh, n_scales=7, noise=1.0,
                                    denoise_coefficients=[5.0, 2.0])
@@ -256,8 +227,8 @@ class TestBandDeepTail:
         assert float(jnp.max(jnp.abs(got_p - ref_p))) < 5e-6
 
     def test_band_tail_rows_mesh_batched(self, rng):
-        """rows-only mesh (no reshard) over a stack with per-frame
-        statistics and a deep tail."""
+        """rows-only mesh over a stack with per-frame statistics and
+        deep scales."""
         mesh = make_mesh(data=2, rows=2, cols=1,
                          devices=jax.devices()[:4])
         stack = jnp.asarray(

@@ -50,11 +50,8 @@ def test_rejects_unknown_kwarg(stack):
 
 def test_wow_core_need_planes_static(rng):
     """``need_planes`` must be a *static* argument of wow_core's jit —
-    the fused paths branch on it in Python (tile-width choice, plane
-    writes), and treating it as traced raised
-    TracerBoolConversionError on TPU only (CPU never reaches the fused
-    dispatch).  The XLA fallback also honors the (recon, None) serving
-    contract."""
+    it decides in Python whether the planes are returned — and the
+    (recon, None) serving contract holds."""
     from wavelets_tpu.models.wow import wow_core
     from wavelets_tpu.ops.filters import B3SPLINE
 
@@ -69,19 +66,16 @@ def test_wow_core_need_planes_static(rng):
     r1, planes = wow_core(data, zero, **st)
     r2, none = wow_core(data, zero, need_planes=False, **st)
     assert none is None and planes is not None
-    # XLA re-fuses once the dead plane stack is eliminated, so CPU
-    # equality is to f32 fusion tolerance (the Pallas paths pin their
-    # tile plans and are bitwise — verified in scripts/tpu_check.py)
+    # XLA re-fuses once the dead plane stack is eliminated, so
+    # equality is to f32 fusion tolerance
     np.testing.assert_allclose(np.asarray(r1), np.asarray(r2),
                                rtol=1e-4, atol=1e-6)
 
 
 def test_wow_stack_no_coefficients(rng):
     """with_coefficients=False returns (recon, None) with recon equal
-    to the coefficient-bearing call.  (On the CPU fallback the no-cube
-    variant runs under jit while the cube-bearing one is eager, so
-    equality is to f32 fusion tolerance; the Pallas paths are bitwise —
-    see test_pallas_merged.test_merged_need_planes_recon_bitwise.)"""
+    to the coefficient-bearing call, to f32 fusion tolerance (the two
+    are different XLA programs)."""
     stack = jnp.asarray(
         rng.normal(size=(2, 256, 256)).astype(np.float32))
     r1, planes = wow_stack(stack, denoise_coefficients=[5, 2])

@@ -1,13 +1,13 @@
-"""wavelets_tpu — a TPU-native à trous (undecimated) wavelet engine.
+"""wavelets_tpu — an accelerator-native à trous (undecimated) wavelet engine.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 ``watroo`` reference package (frederic-auchere/wavelets): dyadic à trous
 decomposition with Triangle / B3-spline scaling functions, coefficient
 significance statistics, soft/hard-threshold denoising, the WOW
 (Wavelets Optimized Whitening) pipeline including the bilateral variant,
 and multiresolution-supported Richardson-Lucy deconvolution — all
-expressed as pure, jit-compiled functions designed for the TPU memory
-hierarchy and for SPMD execution over device meshes.
+expressed as pure, jit-compiled functions that XLA compiles for the GPU,
+and for SPMD execution over device meshes.
 
 Public API parity with the reference (``watroo/__init__.py:1-4``):
 ``AtrousTransform``, ``B3spline``, ``Triangle``, ``Coefficients``,

@@ -217,9 +217,8 @@ class Coefficients:
     ``coeffs[s] = coeffs[s] * mask`` (see ``__setitem__``) instead.
 
     Construction also accepts the planes as a tuple/list of per-scale
-    arrays (the ``planes_layout="rows"`` form the WOW fast path emits —
-    the cube concatenation costs 7.2 ms at 4k² L10 on v5e, so it is
-    deferred): the stacked cube is assembled lazily on first ``.data``
+    arrays (the ``planes_layout="rows"`` form ``wow`` emits, which
+    defers the cube concatenation): the stacked cube is assembled lazily on first ``.data``
     access, while ``__len__``/``get_noise``/``significance`` read the
     individual planes without triggering assembly."""
 
@@ -245,9 +244,7 @@ class Coefficients:
     @property
     def data(self):
         if self._cube is None:
-            from .ops.layout import stack_planes
-
-            self._cube = stack_planes(self._rows)
+            self._cube = jnp.stack(self._rows)
             self._rows = None
         return self._cube
 
@@ -351,8 +348,9 @@ class AtrousTransform:
         """Decompose ``arr`` over ``level`` scales → ``Coefficients`` with
         ``level+1`` planes.  ``recursive=True`` reproduces the reference
         recursive algorithm's output contract (identical interior, one-shot
-        symmetric border padding); on TPU it is the same standard engine —
-        the decimated recursion is a CPU cache trick with no TPU analog."""
+        symmetric border padding); it runs the same standard engine —
+        the decimated recursion is a CPU cache trick with no use on an
+        accelerator."""
         arr = _as_device_array(arr)
         if arr.ndim > 3:
             raise ValueError("Unsupported number of dimensions")

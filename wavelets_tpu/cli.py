@@ -10,7 +10,7 @@ Examples::
     python -m wavelets_tpu decompose in.raw coeffs.npz \\
         --shape 2048 2048 --dtype float32 --level 6
 
-    # benchmark the current device
+    # benchmark the attached GPU
     python -m wavelets_tpu bench
 """
 
@@ -35,7 +35,7 @@ def _add_stack_args(p):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="wavelets_tpu",
-        description="TPU-native à trous wavelet engine")
+        description="à trous wavelet engine on JAX")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     w = sub.add_parser("wow", help="WOW-enhance a frame stack")
@@ -89,6 +89,10 @@ def main(argv=None):
     sub.add_parser("bench", help="run the headline benchmark")
 
     args = ap.parse_args(argv)
+
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     if args.cmd == "bench":
         from . import bench as bench_mod

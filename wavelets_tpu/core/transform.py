@@ -1,6 +1,6 @@
 """The à trous transform engine — functional core.
 
-A TPU-first redesign of ``AtrousTransform`` (``watroo/wavelets.py:290-444``):
+An accelerator-first redesign of ``AtrousTransform`` (``watroo/wavelets.py:290-444``):
 
 * **Pure and jit-compiled.**  ``decompose(x, level, sf, ...)`` is a pure
   function of the input array; ``level`` and the scaling function are
@@ -13,7 +13,7 @@ A TPU-first redesign of ``AtrousTransform`` (``watroo/wavelets.py:290-444``):
   exact by construction (the sum telescopes; watroo/wavelets.py:442).
 * **The recursive algorithm is deliberately not ported.**  It is a CPU
   cache optimization (decimated sub-array convolution,
-  watroo/wavelets.py:330-406) that is meaningless on TPU; its output
+  watroo/wavelets.py:330-406) with no use on an accelerator; its output
   contract (identical to the standard path in the interior, one-shot
   symmetric padding at the borders) is reproduced by
   ``decompose(..., recursive_borders=True)``.
@@ -34,12 +34,9 @@ from ..ops.conv import (
     smooth,
 )
 from ..ops.filters import ScalingFunction
-from ..ops.layout import stack_planes
 
 __all__ = [
     "decompose",
-    "decompose_pieces",
-    "assemble_pieces",
     "synthesize",
     "decompose_fn",
     "normalize_bilateral",
@@ -109,8 +106,6 @@ def _smooth_step(
         "bilateral_scaling",
         "recursive_borders",
         "boundary",
-        "scale_offset",
-        "use_pallas",
     ),
 )
 def decompose(
@@ -123,8 +118,6 @@ def decompose(
     bilateral_scaling: bool = False,
     recursive_borders: bool = False,
     boundary: Optional[str] = None,
-    scale_offset: int = 0,
-    use_pallas: Optional[bool] = None,
 ) -> jax.Array:
     """À trous decomposition → coefficient cube ``(level+1, *x.shape)``.
 
@@ -140,64 +133,12 @@ def decompose(
     algorithm's border contract: pad once by ``hw·2^(level−1)`` with
     symmetric reflection (watroo/wavelets.py:394-395), transform, crop.
     Interior values are identical to the standard path (SURVEY §2.4).
-
-    ``scale_offset`` starts the dilation ladder at ``2^offset`` (used by
-    the fused Pallas kernel to chain deep scales).  ``use_pallas``
-    overrides the automatic fast-path dispatch (None = auto: TPU, 2-D
-    float32, standard algorithm, tile-divisible shapes).
     """
     if axes is None:
         axes = tuple(range(x.ndim))
     axes = tuple(a % x.ndim for a in axes)
     if boundary is None:
         boundary = boundary_for_ndim(len(axes))
-
-    if scale_offset == 0 and not recursive_borders:
-        if bilateral is not None:
-            from ..ops import pallas_bilateral
-
-            fuse_b = use_pallas
-            if fuse_b is None:
-                fuse_b = pallas_bilateral.can_fuse_bilateral(
-                    x, level, sf, axes, boundary)
-            if fuse_b:
-                def xla_tail(residual, n, offset):
-                    return decompose(
-                        residual, n, sf, axes=axes, boundary=boundary,
-                        bilateral=bilateral,
-                        bilateral_scaling=bilateral_scaling,
-                        scale_offset=offset, use_pallas=False)
-
-                pieces, layout, _ = pallas_bilateral.fused_bilateral_pieces(
-                    x, level, sf, bilateral, bilateral_scaling,
-                    xla_tail=xla_tail,
-                    interpret=jax.default_backend() == "cpu")
-                return stack_planes(
-                    [pieces[k][r] for s in range(level + 1)
-                     for (k, r) in [layout[s]]])
-        else:
-            from ..ops import pallas_conv
-
-            if use_pallas is None:
-                use_pallas = pallas_conv.can_fuse(
-                    x, level, sf, bilateral, axes, boundary)
-                if not use_pallas and pallas_conv.can_fuse_volume(
-                        x, level, sf, axes, boundary):
-                    # genuine 3-D volume: axial XLA pass + batched
-                    # in-plane fused kernel per scale (pallas_conv.
-                    # fused_volume_decompose; watroo/wavelets.py:47-64)
-                    return pallas_conv.fused_volume_decompose(
-                        x, level, sf,
-                        interpret=jax.default_backend() == "cpu")
-            if use_pallas:
-                def xla_tail(residual, n, offset):
-                    return decompose(
-                        residual, n, sf, axes=axes, boundary=boundary,
-                        scale_offset=offset, use_pallas=False)
-
-                return pallas_conv.fused_decompose(
-                    x, level, sf, xla_tail=xla_tail,
-                    interpret=jax.default_backend() == "cpu")
 
     if recursive_borders:
         hw = sf.half_width * 2 ** (level - 1) if level > 0 else 0
@@ -218,117 +159,11 @@ def decompose(
     c = x
     for s in range(level):
         c_next = _smooth_step(
-            c, s + scale_offset, sf, axes, boundary, bilateral,
-            bilateral_scaling
-        )
+            c, s, sf, axes, boundary, bilateral, bilateral_scaling)
         planes.append(c - c_next)
         c = c_next
     planes.append(c)
-    return stack_planes(planes)
-
-
-def decompose_pieces(
-    x: jax.Array,
-    level: int,
-    sf: ScalingFunction,
-    *,
-    axes: Optional[Tuple[int, ...]] = None,
-    bilateral: Optional[Tuple[float, ...]] = None,
-    bilateral_scaling: bool = False,
-    boundary: Optional[str] = None,
-    use_pallas: Optional[bool] = None,
-    defer_tail: bool = False,
-):
-    """Decomposition as ``(pieces, layout)`` — the fused kernels' native
-    form, with no plane-cube concatenation.
-
-    ``pieces`` is a tuple of cubes; ``layout[s] = (piece, row)`` locates
-    the detail plane of scale ``s`` (and ``layout[level]`` the
-    residual).  Consumers that whiten/denoise per scale (models/wow.py)
-    read straight from the group cubes; :func:`decompose` is the
-    one-cube convenience form.
-
-    With ``defer_tail=True`` the return is ``(pieces, layout, tail)``:
-    scales past the fused groups are left uncomputed and ``tail =
-    (residual, n_tail)`` hands the smooth carry to the consumer (None
-    when all scales were computed, in which case ``layout`` covers
-    ``level + 1`` entries as usual)."""
-    if axes is None:
-        axes = tuple(range(x.ndim))
-    axes = tuple(a % x.ndim for a in axes)
-    if boundary is None:
-        boundary = boundary_for_ndim(len(axes))
-
-    if bilateral is not None:
-        from ..ops import pallas_bilateral
-
-        fuse_b = use_pallas
-        if fuse_b is None:
-            fuse_b = pallas_bilateral.can_fuse_bilateral(
-                x, level, sf, axes, boundary)
-        if fuse_b:
-            def xla_tail(residual, n, offset):
-                return decompose(
-                    residual, n, sf, axes=axes, boundary=boundary,
-                    bilateral=bilateral,
-                    bilateral_scaling=bilateral_scaling,
-                    scale_offset=offset, use_pallas=False)
-
-            pieces, layout, tail = \
-                pallas_bilateral.fused_bilateral_pieces(
-                    x, level, sf, bilateral, bilateral_scaling,
-                    xla_tail=xla_tail, defer_tail=defer_tail,
-                    interpret=jax.default_backend() == "cpu")
-            n_done = level + 1 - (tail[1] + 1 if tail is not None else 0)
-            layout = tuple(layout[s] for s in range(n_done))
-            if defer_tail:
-                return tuple(pieces), layout, tail
-            return tuple(pieces), layout
-    else:
-        from ..ops import pallas_conv
-
-        if use_pallas is None:
-            use_pallas = pallas_conv.can_fuse(
-                x, level, sf, bilateral, axes, boundary)
-        if use_pallas:
-            def xla_tail(residual, n, offset):
-                return decompose(
-                    residual, n, sf, axes=axes, boundary=boundary,
-                    scale_offset=offset, use_pallas=False)
-
-            pieces, layout, tail = pallas_conv.fused_decompose_pieces(
-                x, level, sf, xla_tail=xla_tail, defer_tail=defer_tail,
-                interpret=jax.default_backend() == "cpu")
-            n_done = level + 1 - (tail[1] + 1 if tail is not None else 0)
-            layout = tuple(layout[s] for s in range(n_done))
-            if defer_tail:
-                return tuple(pieces), layout, tail
-            return tuple(pieces), layout
-
-    from ..ops import pallas_conv as _pc
-
-    if (bilateral is None and use_pallas is None
-            and _pc.can_fuse_volume(x, level, sf, axes, boundary)):
-        planes = _pc.fused_volume_decompose(
-            x, level, sf, interpret=jax.default_backend() == "cpu")
-    else:
-        planes = decompose(
-            x, level, sf, axes=axes, bilateral=bilateral,
-            bilateral_scaling=bilateral_scaling, boundary=boundary,
-            use_pallas=False)
-    layout = tuple((0, s) for s in range(level + 1))
-    if defer_tail:
-        return (planes,), layout, None
-    return (planes,), layout
-
-
-def assemble_pieces(pieces, layout) -> jax.Array:
-    """Plane cube from ``(pieces, layout)``; free when the decomposition
-    produced a single cube in scale order."""
-    if len(pieces) == 1 and layout == tuple(
-            (0, s) for s in range(len(layout))):
-        return pieces[0]
-    return stack_planes([pieces[k][r] for (k, r) in layout])
+    return jnp.stack(planes)
 
 
 def synthesize(planes: jax.Array) -> jax.Array:

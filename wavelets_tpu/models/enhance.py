@@ -16,7 +16,6 @@ import numpy as np
 
 from ..api import AtrousTransform, _as_device_array, _spec_of
 from ..core.transform import decompose, normalize_bilateral
-from ..ops.layout import stack_planes
 from ..ops.stats import mad_noise_frames, significance
 
 __all__ = ["enhance", "prepare_params"]
@@ -50,8 +49,8 @@ def _enhance_channels_core(img, noise_arr, *, spec, level, wgts, dnss,
 
     The per-channel loop of the reference (watroo/utils.py:47-60)
     compiled three separate programs here (round-4 verdict item); the
-    channels instead ride the batched decomposition (``axes=(1, 2)`` —
-    the Pallas stack kernels where the gates admit) and the per-channel
+    channels instead ride the batched decomposition (``axes=(1, 2)``)
+    and the per-channel
     scalars (weights, denoise sigmas, supplied noise) fold into
     broadcast ``(C, 1, 1)`` factor tables.  Per-element arithmetic is
     identical to the sequential path: ``sigma == 0`` channels reduce to
@@ -154,7 +153,7 @@ def enhance(*args, weights=None, denoise=None, soft_threshold=True, out=None,
                 bilateral_scaling=bool(atrous.bilateral_scaling),
                 lazy_mask=lazy)
         else:
-            result = stack_planes([
+            result = jnp.stack([
                 one_channel(img[c], weights[c], denoise[c],
                             None if noise is None else noise[c])
                 for c in range(3)])

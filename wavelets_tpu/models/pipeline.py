@@ -85,8 +85,8 @@ def process_stack(
                     pad = np.repeat(host[-1:], batch - len(idx), axis=0)
                     host = np.concatenate([host, pad], axis=0)
                 dev = jnp.asarray(host)
-                # coefficients are never kept here: skip their HBM
-                # writes entirely (with_coefficients=False)
+                # coefficients are never kept here: skip their device
+                # memory writes entirely (with_coefficients=False)
                 recon = run_batch(dev)
                 if pending is not None:
                     prev, n_valid = pending

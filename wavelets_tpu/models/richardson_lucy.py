@@ -7,18 +7,14 @@ residual, masks it with the (persistent) multiresolution support, and
 applies the multiplicative RL update.  The iteration loop is a
 ``lax.scan`` with ``(psi, mrs)`` as carry, so the whole deconvolution —
 including one full wavelet transform per iteration — is a single compiled
-program.  The per-iteration transforms ride the fused Pallas decompose
-kernels where the gates admit (2-D f32 tileable frames).  The PSF
-convolutions use either the XLA FFT path (``jnp.fft.rfft2``) or a direct
+program.  The PSF convolutions use either the XLA FFT path (``jnp.fft.rfft2``) or a direct
 ``lax.conv`` with symmetric padding (cv2 ``BORDER_REFLECT`` parity,
 watroo/utils.py:257); ``fft="auto"`` (the default) picks by a measured
 cost model — see :func:`_fft_auto`.
 
-Round 5 additions (verdict r4 item 7): a first-class frame-stack mode —
-``richardson_lucy_stack`` (or a 3-D ``(B, H, W)`` input to the core)
-runs per-frame deconvolution with per-frame statistics through one
-compiled program, the batched fused decompose kernels carrying the
-frame axis on their grid."""
+Frame-stack mode: ``richardson_lucy_stack`` (or a 3-D ``(B, H, W)``
+input to the core) runs per-frame deconvolution with per-frame
+statistics through one compiled program."""
 
 from __future__ import annotations
 
@@ -33,7 +29,6 @@ from jax import lax
 from ..api import _as_device_array
 from ..core.transform import decompose, synthesize
 from ..ops.filters import B3SPLINE, ScalingFunction
-from ..ops.layout import stack_planes
 from ..ops.stats import mad_noise, mad_noise_frames, significance
 
 __all__ = ["richardson_lucy", "richardson_lucy_core",
@@ -50,11 +45,9 @@ def _correlate2d_symmetric(x: jax.Array, psf: jax.Array) -> jax.Array:
     for the forward blur and leaves it unflipped for the adjoint.
 
     Implemented as a shift-and-add over static tap offsets (the PSF
-    values stay traced — runtime data): a single-channel
-    ``lax.conv_general_dilated`` is MXU-degenerate on TPU (1/128 lane
-    utilization; measured 5.9 ms per 5×5 conv at 1024² vs ~0.2 ms for
-    the fused shift-add, which is pure VPU work XLA folds into one
-    elementwise pass)."""
+    values stay traced — runtime data), which XLA folds into one
+    elementwise pass; a single-channel convolution leaves a matrix
+    unit idle."""
     ph, pw = psf.shape
     top, left = ph // 2, pw // 2
     bot, right = ph - 1 - top, pw - 1 - left
@@ -82,15 +75,15 @@ def _fft_psf(psf: jax.Array, shape: Tuple[int, int]) -> jax.Array:
     return jnp.fft.rfft2(jnp.roll(padded, (H // 2, W // 2), axis=(0, 1)))
 
 
-#: cost-model crossover for ``fft="auto"``: the direct path costs one
-#: fused shift-add pass per PSF tap (~0.17 ms per tap-iteration at 1k²
-#: on v5e: 225-tap 15×15 → 39.15 ms vs FFT 6.11 ms, EVIDENCE_r04),
-#: while the FFT path costs 4 transforms/iteration regardless of PSF
-#: size — direct wins only for small kernels.  36 taps ≈ the measured
-#: break-even (6×6); the model is resolution-independent because both
-#: sides scale ~linearly with pixels (the FFT log factor is ~constant
-#: over practical frame sizes).
-_FFT_AUTO_TAPS = 36
+#: crossover for ``fft="auto"``: the direct path costs one shifted
+#: multiply-add per PSF tap, the FFT path four transforms per iteration
+#: whatever the PSF.  One H100 (400 W limit), 1024², 10 iterations:
+#: direct 1.53 / 1.82 / 2.35 / 3.18 / 15.78 / 30.88 ms at 3² / 5² / 7² /
+#: 9² / 11² / 15² taps, FFT 2.42 / 2.44 / 2.40 / 2.40 / 2.61 / 2.41 ms.
+#: Direct wins clearly up to 5×5 and FFT from 9×9; at 7×7 = 49 taps the
+#: two are within 2%, inside the noise of one run.  Measured at 1024²
+#: only.
+_FFT_AUTO_TAPS = 49
 
 
 def _fft_auto(fft, psf_shape) -> bool:
@@ -153,7 +146,7 @@ def richardson_lucy_core(
                     c, float(denoise_coefficients[s]), init_noise,
                     float(sigma_e[s]), soft)
             masked.append(c)
-        psi = synthesize(stack_planes(masked))
+        psi = synthesize(jnp.stack(masked))
         has_init_noise = need_noise
 
     mrs0 = (jnp.zeros((level,) + data.shape, data.dtype) if not soft
@@ -198,7 +191,7 @@ def richardson_lucy_core(
             new_mrs.append(m)
         masked.append(res_planes[level])
 
-        res = synthesize(stack_planes(masked))
+        res = synthesize(jnp.stack(masked))
         res = (res + phi) / phi
 
         if fft:
@@ -207,7 +200,7 @@ def richardson_lucy_core(
         else:
             conv = _correlate2d_symmetric(res, psf.astype(data.dtype))
 
-        return (psi * conv, stack_planes(new_mrs)), None
+        return (psi * conv, jnp.stack(new_mrs)), None
 
     (psi, _), _ = lax.scan(
         step, (psi, mrs0), jnp.arange(iterations), length=iterations)
@@ -222,8 +215,9 @@ def richardson_lucy(data, psf, iterations=10,
     (watroo/utils.py:222-290).
 
     Deviation from the reference default: ``fft="auto"`` picks the
-    faster convolution path by PSF size (direct shift-add for kernels
-    of ≤ ~36 taps, FFT beyond — 6.4× faster at 15×15/1k² on v5e).  The
+    faster convolution path by PSF size (direct shift-add up to 49
+    taps, FFT beyond — 13× faster at 15×15 on 1024², see
+    ``_FFT_AUTO_TAPS``).  The
     two paths differ slightly near the borders, exactly as the
     reference's own ``fft`` flag does (rolled-spectrum circular
     convolution vs symmetric-pad correlation); pass ``fft=False`` /
@@ -237,7 +231,7 @@ def richardson_lucy(data, psf, iterations=10,
         threshold_type=threshold_type,
         uniform_init=bool(uniform_init),
         persistent_mrs=bool(persistent_mrs),
-        fft=_fft_auto(fft, np.asarray(psf).shape),
+        fft=_fft_auto(fft, psf.shape),
     )
 
 
@@ -245,7 +239,7 @@ def richardson_lucy_stack(data, psf, **kwargs):
     """Per-frame RL deconvolution over a stack ``(B, H, W)`` in one
     compiled program: per-frame MAD noise / initialization statistics,
     the shared PSF sliding over the last two axes, and the batched
-    fused decompose kernels carrying the frame axis on their grid —
+    batched decomposition carrying the frame axis —
     matches a loop of single-frame :func:`richardson_lucy` calls.
 
     Accepts the same keyword arguments as :func:`richardson_lucy`."""
@@ -264,6 +258,6 @@ def richardson_lucy_stack(data, psf, **kwargs):
         threshold_type=kwargs.pop("threshold_type", "soft"),
         uniform_init=bool(kwargs.pop("uniform_init", False)),
         persistent_mrs=bool(kwargs.pop("persistent_mrs", True)),
-        fft=_fft_auto(fft, np.asarray(psf).shape),
+        fft=_fft_auto(fft, psf.shape),
         sf=kwargs.pop("sf", B3SPLINE),
     )

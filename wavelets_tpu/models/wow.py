@@ -22,16 +22,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..api import B3spline, Coefficients, _as_device_array, _spec_of
-from ..core.transform import (
-    assemble_pieces,
-    decompose_pieces,
-    normalize_bilateral,
-    synthesize,
-)
+from ..core.transform import decompose, normalize_bilateral, synthesize
 from ..ops.conv import smooth
 from ..ops.filters import ScalingFunction
-from ..ops.layout import stack_planes
-from ..ops.stats import mad_noise, mad_noise_frames, significance
+from ..ops.stats import mad_noise_frames, significance
 
 __all__ = ["wow", "wow_core", "wow_stack", "normalize_wow_params"]
 
@@ -105,660 +99,7 @@ class LocalReduceOps:
         return jnp.max(x)
 
 
-class VmapSafeReduceOps(LocalReduceOps):
-    """Reductions usable under vmap (Pallas kernels cannot run under
-    vmap; batched stacks should prefer the frame-grid kernels via
-    ops.stats.median_abs_frames).  On accelerators the XLA sort is
-    pathologically slow to compile and run, so the vmappable streaming
-    bisection is used; CPU keeps the (fast there) sort-based median."""
-
-    def median_abs(self, x):
-        from ..ops.stats import _median_nonneg_bisect
-
-        if jax.default_backend() == "cpu":
-            return jnp.median(jnp.abs(x))
-        return _median_nonneg_bisect(jnp.abs(x))
-
-
 _LOCAL_OPS = LocalReduceOps()
-
-#: dispatch bf16 inputs through the merged decompose+whiten kernels.
-#: Hardware A/B (4k² L6 known-noise denoise [5,2], v5e, 2026-08-19,
-#: 30 chained iters, sync-RTT subtracted): XLA bf16 5.34 ms (187 fps)
-#: vs MERGED 5.00 ms (200 fps; no-planes 4.90 ms) — the merged path
-#: wins, max recon |Δ| 6.3e-2 on O(14) data ≈ 4.5e-3 relative (bf16
-#: rounding of inter-pass buffers; the engine is dtype-preserving,
-#: watroo/wavelets.py:297).  Round 1's opposite result held for the
-#: *pair* hybrid, whose whiten kernel re-read the planes from HBM.
-#: NB f32 dispatch measures 4.25 ms on the same config — bf16 input
-#: halves traffic but pays VPU convert ops and loses the deep-scale
-#: kernels; cast to f32 when throughput matters more than memory.
-BF16_MERGED = True
-
-
-def _can_fuse_whiten(data, axes, n_scales, whitening, preserve_variance,
-                     h, bilateral, allow_cpu=False):
-    """Fused Pallas whitening applies to the standard or bilateral
-    (optionally frame-batched) WOW: 2-D f32, whitening on, tileable
-    shape, on TPU.  Decidable from the raw input, *before*
-    decomposition — wow_core uses it to defer the deep-scale tail into
-    the whitening loop.
-
-    A 3-D input qualifies only as a frame *stack* (``axes == (1, 2)``);
-    a 3-D volume (``axes`` covering all three) is a genuinely 3-D
-    transform (watroo/wavelets.py:47-64) and takes the XLA path.
-
-    Bilateral qualifies: the whitening math is identical (the power
-    smooth is plain either way, watroo/utils.py:194) — only the σ_e
-    table differs, handled inside _wow_body_fused.
-
-    ``preserve_variance`` qualifies single-frame and batched: the
-    per-scale power-norm ``sqrt(mean(c²))`` (watroo/utils.py:178-184)
-    folds into the whiten kernel's runtime factor table, per frame for
-    stacks (the table is per-(scale, frame), like the thresholds).
-
-    Gamma blend (``0 < h < 1``) qualifies: the kernel's third
-    accumulator emits the masked-plane sum for the tone map.  ``h == 1``
-    skips whitening entirely (_wow_body's ``whitening and h < 1``
-    guard) — XLA path.
-
-    ``allow_cpu=True`` skips the backend check (the kernels run in
-    interpret mode on CPU) — the sharded engine's per-shard fast-path
-    gate uses it so the forced CPU test mesh exercises the same
-    dispatch as a real slice."""
-    if jax.default_backend() == "cpu" and not allow_cpu:
-        return False
-    if not whitening or h >= 1:
-        return False
-    # f32 only.  bf16 measured end-to-end (4k L6, v5e): pure XLA
-    # 4.63 ms beats the hybrid XLA-decompose + Pallas-whiten 5.44 ms —
-    # halved HBM traffic benefits XLA's fusions fully while the kernels
-    # keep their fixed per-step costs.  See DESIGN.md.
-    if data.ndim not in (2, 3) or data.dtype != jnp.float32:
-        return False
-    spatial = tuple(range(data.ndim - 2, data.ndim))
-    if axes is not None and tuple(a % data.ndim for a in axes) != spatial:
-        return False
-    if data.ndim == 3 and axes is None:
-        return False  # volume transform, not a frame stack
-    H, W = data.shape[-2:]
-    return H % 256 == 0 and W % 256 == 0 and n_scales >= 1
-
-
-def _deep_tail_scales(carry, recon, noise32, sf, tail_start, n_scales,
-                      weights, denoise_coefficients, soft_threshold,
-                      sigma_e, sp_axes, batched,
-                      bilateral=None, bilateral_scaling=False,
-                      write_planes=True):
-    """Whiten the deferred tail scales s = tail_start..n_scales−1 from
-    the smooth ``carry``: per scale, chain smooth + difference + power
-    smooth + significance + whiten, accumulating into ``recon``
-    (``recon=None`` starts the accumulation at the first whitened
-    plane).  Plain deep scales dispatch to the fused Pallas step
-    (ops/pallas_deep.py) — one launch per scale instead of ~4 XLA
-    smooth passes; bilateral chains and infeasible geometries run the
-    XLA ops.  Returns ``(rows, recon, residual_carry)``."""
-    from ..core.transform import _smooth_step
-    from ..ops import pallas_deep
-
-    interp = jax.default_backend() == "cpu"
-    noise_b = noise32[:, None, None] if batched else noise32
-
-    def thr_of(k):
-        # guarded: sigma_e may be shorter than n_scales (the reference's
-        # 10-entry bilateral table quirk, watroo/wavelets.py:274-276);
-        # the reference never touches sigma_e[k] for un-denoised scales
-        # (significance's sigma==0 early-out, watroo/wavelets.py:136)
-        if denoise_coefficients[k] == 0:
-            return jnp.zeros_like(noise32)
-        return (denoise_coefficients[k] * float(sigma_e[k])) * noise32
-
-    rows = []
-    s = tail_start
-    while s < n_scales:
-        if (s + 1 < n_scales
-                and (carry.shape[-2] >> s) <= 32
-                and pallas_deep.can_deep2(carry, sf, s, bilateral)):
-            # fused scale pair: the intermediate carry (scale-s smooth)
-            # never leaves VMEM — one read + one carry write for two
-            # scales instead of two of each (ops/pallas_deep.py
-            # _make_stream2_kernel).  Hardware A/B (r4_tile_probe,
-            # 2026-08-20): the pair wins only where the class streams
-            # are short (M = H/2^s ≤ 32 — extension re-fetch dominates
-            # the singles there: 1.95 vs 2.06 ms for s=8,9 at 4k²);
-            # at shallow scales two single launches pipeline better
-            # (1.24 vs 1.56 ms for s=4,5).  Parity is bitwise.
-            carry_b = carry if batched else carry[None]
-            thr2 = jnp.stack([thr_of(s), thr_of(s + 1)])
-            w1p, w2p, _, carry_b = pallas_deep.deep_whiten_step2(
-                carry_b, None, thr2, sf=sf, scale=s,
-                weights=(float(weights[s]), float(weights[s + 1])),
-                soft=soft_threshold,
-                masked=(denoise_coefficients[s] != 0,
-                        denoise_coefficients[s + 1] != 0),
-                write_plane=True, interpret=interp)
-            for w in (w1p, w2p):
-                w = w if batched else w[0]
-                if write_planes:
-                    rows.append(w)
-                recon = w if recon is None else recon + w
-            carry = carry_b if batched else carry_b[0]
-            s += 2
-            continue
-        if pallas_deep.can_deep(carry, sf, s, bilateral):
-            carry_b = carry if batched else carry[None]
-            thr = thr_of(s)
-            # both modes skip the in-kernel recon accumulation: XLA
-            # fuses the per-scale whitened-plane adds into one pass
-            # (fewer HBM moves than riding recon through every launch,
-            # measured), and serving keeps the bitwise-identical-recon
-            # contract by construction — the in-kernel add contracts
-            # `recon + wc·(w/lp)` into an FMA, one ulp off the XLA add.
-            # In serving mode the white plane is consumed only by the
-            # recon sum.
-            white, _, carry_b = pallas_deep.deep_whiten_step(
-                carry_b, None, thr,
-                sf=sf, scale=s, weight=float(weights[s]),
-                soft=soft_threshold,
-                masked=denoise_coefficients[s] != 0,
-                write_plane=True, interpret=interp)
-            w = white if batched else white[0]
-            if write_planes:
-                rows.append(w)
-            recon = w if recon is None else recon + w
-            carry = carry_b if batched else carry_b[0]
-            s += 1
-            continue
-        if (bilateral is not None and not interp
-                and pallas_deep.can_deep_bilateral(carry, sf, s)):
-            # fused bilateral deep step (the reference hot loop
-            # watroo/wavelets.py:84-105 at deep dilations): the k²
-            # shifted range-weight reads and both sdev smooths run
-            # from the VMEM carry ring — replaces ~7.5 ms/scale of
-            # XLA chain at 4k² with one streaming launch
-            carry_b = carry if batched else carry[None]
-            thr = thr_of(s)
-            vf = float(bilateral[s]) ** 2
-            if bilateral_scaling:
-                vf *= (s + 1)
-            white, carry_b = pallas_deep.deep_bilateral_whiten_step(
-                carry_b, thr, sf=sf, scale=s, var_factor=vf,
-                weight=float(weights[s]), soft=soft_threshold,
-                masked=denoise_coefficients[s] != 0)
-            w = white if batched else white[0]
-            if write_planes:
-                rows.append(w)
-            recon = w if recon is None else recon + w
-            carry = carry_b if batched else carry_b[0]
-            s += 1
-            continue
-        if bilateral is None:
-            # pad-to-feasible route (odd shapes; round 5: pad once for
-            # a RUN of consecutive feasible scales): the stream kernel
-            # needs W % 128 == 0 and H % 2^s == 0, which odd frames
-            # fail for every deep scale.  Symmetric-pad the carry by
-            # >= the run's cumulative reach (chain + power smooth,
-            # Σ 2·hw·2^k), chain the fused steps on the padded carry —
-            # the intermediate carries stay padded, saving a pad + crop
-            # round trip per extra scale — and crop the outputs.
-            # Bitwise by the _pad_split argument (reflection commutes
-            # with the folds; the reference pads the *current* smooth
-            # per scale, watroo/wavelets.py:77).  Worth it while the
-            # padded area stays under ~1.8x (the XLA chain costs
-            # ~2.2 ms/scale at 4k vs ~0.7·area for the kernel).
-            plan = _padded_deep_run_plan(carry.shape, carry.dtype, sf,
-                                         s, n_scales)
-            if plan is not None:
-                Hp, Wp, run = plan
-                H, Wd = carry.shape[-2:]
-                pt = (Hp - H) // 2
-                pj = (Wp - Wd) // 2
-                pad_w = [(0, 0)] * (carry.ndim - 2) + [
-                    (pt, Hp - H - pt), (pj, Wp - Wd - pj)]
-                cp = jnp.pad(carry, pad_w, mode="symmetric")
-                carry_b = cp if batched else cp[None]
-                crop = lambda a: a[..., pt:pt + H, pj:pj + Wd]
-                for k in range(run):
-                    white, _, carry_b = pallas_deep.deep_whiten_step(
-                        carry_b, None, thr_of(s + k), sf=sf,
-                        scale=s + k, weight=float(weights[s + k]),
-                        soft=soft_threshold,
-                        masked=denoise_coefficients[s + k] != 0,
-                        write_plane=True, interpret=interp)
-                    w = crop(white if batched else white[0])
-                    if write_planes:
-                        rows.append(w)
-                    recon = w if recon is None else recon + w
-                carry = crop(carry_b if batched else carry_b[0])
-                s += run
-                continue
-        c_next = _smooth_step(carry, s, sf, sp_axes, "symmetric",
-                              bilateral, bilateral_scaling)
-        c = carry - c_next
-        lp = smooth(c * c, sf, scale=s, axes=sp_axes)
-        lp = jnp.sqrt(jnp.where(lp <= 0, jnp.asarray(1e-15, c.dtype),
-                                lp))
-        if denoise_coefficients[s] != 0:
-            c = c * significance(c, denoise_coefficients[s], noise_b,
-                                 float(sigma_e[s]), soft_threshold)
-        c = c * (weights[s] / lp)
-        if write_planes:
-            rows.append(c)
-        recon = c if recon is None else recon + c
-        carry = c_next
-        s += 1
-    return rows, recon, carry
-
-
-def _wow_body_merged(
-    data, noise, has_noise, sf, n_scales, weights,
-    denoise_coefficients, soft_threshold, need_planes=True,
-    planes_layout="cube",
-):
-    """WOW through the merged decompose+whiten kernel
-    (ops/pallas_conv.py ``_fused_wow_group``): whitened detail planes
-    come straight out of the decompose pass — the raw plane cube never
-    round-trips HBM.  Deep scales run the fused deep step; the residual
-    normalization stays in XLA.  Lazy MAD noise costs one extra XLA
-    smooth here (w₀ must exist *before* the first group so the
-    significance thresholds are known up front).  Numerics match
-    :func:`_wow_body_fused` (same kernels' fold order, same erf).
-
-    ``data`` is a single frame (H, W) or — serving mode only
-    (``need_planes=False``, gated by ``_can_merge_whiten``) — a frame
-    stack (B, H, W) with per-frame statistics; the kernels carry the
-    frame dimension on a leading grid axis, and the plane-cube layout
-    question (batch-major vs scale-major) never arises because no cube
-    is materialized."""
-    from ..ops import pallas_conv
-
-    interp = jax.default_backend() == "cpu"
-    batched = data.ndim == 3
-    H, W = data.shape[-2:]
-    sp_axes = (1, 2) if batched else (0, 1)
-    sigma_e = sf.sigma_e(2, False)
-    n_fast = min(n_scales, _deep_start(data, sf))
-    groups, covered = pallas_conv.plan_wow_prefix(
-        H, W, n_fast, sf.half_width, data.dtype.itemsize)
-    # tile-divisible shapes: groups reach the deep-kernel start
-    # (guarded by _can_merge_whiten).  Padded odd shapes may stop
-    # earlier; the uncovered scales run the per-scale tail below.
-    n_fast = covered
-
-    if not has_noise and any(
-        d != 0 for d in denoise_coefficients[:n_scales]
-    ):
-        w0 = data - smooth(data, sf, scale=0, axes=sp_axes)
-        if batched:
-            noise = mad_noise_frames(w0, float(sigma_e[0]))
-        else:
-            noise = mad_noise(w0, float(sigma_e[0]))
-    noise32 = jnp.asarray(noise, jnp.float32)
-    if batched and noise32.ndim == 0:
-        noise32 = jnp.broadcast_to(noise32, (data.shape[0],))
-
-    out_rows = []
-    recon = None
-    cur = data
-    for off, g in groups:
-        fac = jnp.asarray([weights[off + k] for k in range(g)],
-                          jnp.float32)
-        thr = jnp.stack([
-            (denoise_coefficients[off + k] * float(sigma_e[off + k]))
-            * noise32
-            if denoise_coefficients[off + k] != 0
-            else jnp.zeros_like(noise32)
-            for k in range(g)])
-        masked = tuple(denoise_coefficients[off + k] != 0
-                       for k in range(g))
-        cube, acc = pallas_conv._fused_wow_group(
-            cur, fac, thr, g, sf, offset=off, soft=soft_threshold,
-            masked=masked, need_cube=need_planes, interpret=interp)
-        if need_planes:
-            out_rows.extend(cube[k] for k in range(g))
-        cur = cube[g if need_planes else 0]
-        recon = acc if recon is None else recon + acc
-
-    rows, recon, residual = _deep_tail_scales(
-        cur, recon, noise32, sf, n_fast, n_scales, weights,
-        denoise_coefficients, soft_threshold, sigma_e, sp_axes,
-        batched=batched, write_planes=need_planes)
-    out_rows.extend(rows)
-
-    if batched:
-        lp = jnp.std(residual, axis=(-2, -1), keepdims=True)
-    else:
-        lp = jnp.std(residual)
-    lp = jnp.where(lp <= 0, jnp.asarray(1e-15, residual.dtype), lp)
-    c = residual * (weights[n_scales] / lp)
-    out_rows.append(c)
-    recon = recon + c
-    if not need_planes:
-        return recon, None
-    if planes_layout == "rows":
-        # rows form: the planes leave the program as n_scales+1 separate
-        # arrays — skips the cube concatenation (measured 7.2 ms at 4k²
-        # L10 on v5e, ~40% of the whole pipeline); Coefficients
-        # assembles the cube lazily if the user ever indexes it
-        return recon, tuple(out_rows)
-    return recon, stack_planes(out_rows)
-
-
-def _padded_deep_run_plan(shape, dtype, sf, s, n_scales):
-    """Pad plan for a RUN of consecutive geometry-infeasible deep
-    scales ``s..s+run−1``: one symmetric pad whose per-side width
-    covers the run's cumulative reach
-    ``P(run) = hw·2^s·(3·2^(run−1) − 1)`` — per-scale carry creep
-    ``hw·2^k`` plus the last scale's white reach ``2·hw·2^k`` (the
-    same arithmetic as the whiten-group halo,
-    ops/pallas_conv._wow_group_halo).  The intermediate carries stay
-    padded between the chained stream steps, saving a pad + crop round
-    trip per extra scale.  Returns ``(Hp, Wp, run)`` with the longest
-    run whose padded area stays under 1.8×, or None."""
-    from ..ops import pallas_deep
-
-    H, W = shape[-2:]
-    hw = sf.half_width
-    B = shape[0] if len(shape) == 3 else 1
-    best = None
-    for run in range(1, n_scales - s + 1):
-        D_last = 1 << (s + run - 1)
-        P = hw * (1 << s) * (3 * (1 << (run - 1)) - 1)
-        Hp = -(-(H + 2 * P) // D_last) * D_last
-        Wp = -(-(W + 2 * P) // 128) * 128
-        if Hp * Wp > 1.8 * H * W:
-            break
-        probe = jax.ShapeDtypeStruct((B, Hp, Wp), dtype)
-        if not all(pallas_deep.can_deep(probe, sf, s + k, None)
-                   for k in range(run)):
-            break
-        best = (Hp, Wp, run)
-    return best
-
-
-def _padded_deep_plan(shape, dtype, sf, s):
-    """Pad plan for running the deep stream step on a geometry-infeasible
-    (odd) carry: symmetric-pad by >= the scale's total reach to the
-    nearest feasible extents.  Returns ``(Hp, Wp)`` or None when
-    infeasible or the padded area exceeds 1.8x (where the XLA chain is
-    cheaper; cf. _deep_tail_scales)."""
-    from ..ops import pallas_deep
-
-    D = 1 << s
-    reach = 2 * sf.half_width * D
-    H, W = shape[-2:]
-    Hp = -(-(H + 2 * reach) // D) * D
-    Wp = -(-(W + 2 * reach) // 128) * 128
-    if Hp * Wp > 1.8 * H * W:
-        return None
-    probe = jax.ShapeDtypeStruct(
-        (shape[0] if len(shape) == 3 else 1, Hp, Wp), dtype)
-    if not pallas_deep.can_deep(probe, sf, s, None):
-        return None
-    return Hp, Wp
-
-
-def _deep_start(data, sf) -> int:
-    """First scale a deep-step kernel can own (static geometry),
-    directly or via the pad-to-feasible route: the merged/whiten fast
-    path covers scales below it.  Without the padded route, odd shapes
-    would push deep scales into heavily-padded whiten groups
-    (5120+-extent tiles at offset >= 6) that cost more than the padded
-    stream steps."""
-    from ..ops import pallas_deep
-
-    s = 0
-    while not (pallas_deep.can_deep(
-            data if data.ndim == 3 else data[None], sf, s, None)
-            or _padded_deep_plan(data.shape, data.dtype, sf, s)
-            is not None):
-        s += 1
-        if s > 16:
-            return 16
-    return s
-
-
-def _can_merge_whiten(data, sf, n_scales, lazy_masked: bool,
-                      need_planes: bool = True,
-                      allow_cpu: bool = False) -> bool:
-    """Merged decompose+whiten dispatch: f32 on TPU, fast scales fully
-    coverable by whiten groups, deep scales (if any) all
-    deep-step-feasible.  Single 2-D frames always qualify; a frame
-    stack qualifies only in serving mode (``need_planes=False``) —
-    with planes the kernel-pair path wins because its whiten kernel
-    writes the cube batch-major directly (the merged cube is
-    scale-major and would need a full relayout).  Lazy-noise denoising
-    keeps the kernel-pair path: the significance thresholds would need
-    w₀ *before* the first merged group, costing an extra full-image
-    smooth that eats the merge's gain (measured: lazy L6 8.0 ms merged
-    vs 7.3 ms pair; known-noise 5.4 ms merged vs 6.5)."""
-    from ..ops import pallas_conv, pallas_deep
-
-    if lazy_masked:
-        return False
-    if data.dtype not in (jnp.float32, jnp.bfloat16):
-        return False
-    if data.ndim == 3:
-        if need_planes:
-            return False
-    elif data.ndim != 2:
-        return False
-    if jax.default_backend() == "cpu" and not allow_cpu:
-        return False
-    H, W = data.shape[-2:]
-    ds = _deep_start(data, sf)
-    n_fast = min(n_scales, ds)
-    groups, covered = pallas_conv.plan_wow_prefix(
-        H, W, n_fast, sf.half_width, data.dtype.itemsize)
-    if H % 256 or W % 256:
-        # pad-to-tile route: the group kernels pad each group by its
-        # reach and crop (bitwise-exact); scales past the longest
-        # coverable prefix run the XLA tail inside _deep_tail_scales
-        # (the deep stream kernels need H % 2^s == 0, W % 128 == 0)
-        return H >= 512 and W >= 512 and covered >= 1
-    if covered != n_fast:
-        return False
-    db = data if data.ndim == 3 else data[None]
-    for s in range(n_fast, n_scales):
-        if not pallas_deep.can_deep(db, sf, s, None):
-            return False
-    return True
-
-
-def _wow_body_fused(
-    pieces, layout, tail, noise, has_noise, sf, n_scales, weights,
-    denoise_coefficients, soft_threshold,
-    bilateral=None, bilateral_scaling=False,
-    preserve_variance=False,
-    h=0.0, gamma=3.2, gamma_min=None, gamma_max=None,
-    need_planes=True, planes_layout="cube",
-):
-    """WOW whitening via the fused Pallas kernel (ops/pallas_wow.py),
-    reading detail planes straight from the decompose group cubes
-    (``pieces``/``layout``, see core.transform.decompose_pieces) — no
-    plane-cube concatenation on the reconstruction path.  Scales whose
-    power-smooth halo exceeds the VMEM window run the standard XLA ops;
-    scales past the fused decompose groups arrive *deferred* (``tail =
-    (residual, n_tail)``) and their smooth/difference/whiten steps fuse
-    into one XLA region per scale — the detail planes never round-trip
-    through HBM unwhitened.  Numerically equivalent to :func:`_wow_body`
-    for the supported configuration (erf approximation aside)."""
-    from ..ops.pallas_wow import fused_whiten_pieces, whiten_max_scale
-
-    batched = pieces[0].ndim == 4
-    pieces_b = tuple(p if batched else p[:, None] for p in pieces)
-    tail_start = n_scales - tail[1] if tail is not None else n_scales
-    sp_axes = tuple(range(pieces[0].ndim - 1))[-2:]
-
-    def plane(s):
-        k, r = layout[s]
-        return pieces[k][r]
-
-    sigma_e = sf.sigma_e(2, bilateral is not None)
-    if not has_noise and any(
-        d != 0 for d in denoise_coefficients[:n_scales]
-    ):
-        # batched ⇒ per-frame statistics (wow_stack semantics: a stack
-        # is a batch of independent frames, watroo loop equivalent)
-        if batched:
-            noise = mad_noise_frames(plane(0), float(sigma_e[0]))
-        else:
-            noise = mad_noise(plane(0), float(sigma_e[0]))
-    noise = jnp.asarray(noise, pieces[0].dtype)
-    if batched and noise.ndim == 0:
-        noise = jnp.broadcast_to(noise, (pieces[0].shape[1],))
-
-    n_fast = min(n_scales, whiten_max_scale(sf) + 1, tail_start)
-    noise32 = noise.astype(jnp.float32)
-    thresholds = jnp.stack([
-        (denoise_coefficients[s] * float(sigma_e[s])) * noise32
-        if denoise_coefficients[s] != 0 else jnp.zeros_like(noise32)
-        for s in range(n_fast)
-    ])
-    if preserve_variance:
-        # per-scale power norm sqrt(mean(c²)) folds into the kernel's
-        # runtime factor table (watroo/utils.py:178-184); requires
-        # materialized planes (wow_core passes defer_tail=False).
-        # Batched stacks get a per-(scale, frame) table — the norm is a
-        # per-frame statistic (wow_stack semantics).
-        assert tail is None
-        sp_mean = (-2, -1) if batched else None
-        factors = jnp.stack([
-            weights[s] * jnp.sqrt(jnp.mean(
-                plane(s).astype(jnp.float32) ** 2, axis=sp_mean))
-            for s in range(n_fast)])
-    else:
-        factors = jnp.asarray([weights[s] for s in range(n_fast)],
-                              jnp.float32)
-    outs = fused_whiten_pieces(
-        pieces_b, factors, thresholds, sf, n_fast,
-        tuple(layout[:n_fast]), soft=soft_threshold,
-        batch_major=batched,
-        out_rows_total=n_scales + 1 if batched else 0,
-        write_gamma=h > 0,
-        write_planes=need_planes,
-        interpret=jax.default_backend() == "cpu")
-    whitened, partial = outs[0], outs[1]
-    recon = partial if batched else partial[0]
-    if h > 0:
-        # gamma-blend input: masked-plane sum from the kernel's third
-        # accumulator; deep/residual contributions append below
-        assert tail is None, "gamma disables tail deferral (wow_core)"
-        gamma_scaled = outs[2] if batched else outs[2][0]
-    else:
-        gamma_scaled = None
-
-    noise_b = noise[:, None, None] if batched else noise
-
-    def whiten_detail(c, s):
-        lp = smooth(c * c, sf, scale=s, axes=sp_axes)
-        lp = jnp.sqrt(jnp.where(lp <= 0, jnp.asarray(1e-15, c.dtype),
-                                lp))
-        pn = (jnp.sqrt(jnp.mean(c * c, axis=(-2, -1) if batched
-                                else None, keepdims=batched))
-              if preserve_variance else jnp.asarray(1.0, c.dtype))
-        if denoise_coefficients[s] != 0:
-            c = c * significance(c, denoise_coefficients[s], noise_b,
-                                 float(sigma_e[s]), soft_threshold)
-        return c * (weights[s] * pn / lp), c
-
-    # batched: whitened is already (B, n_fast, H, W) batch-major; only
-    # the deep/tail/residual rows are collected and concatenated, so
-    # the fast planes never relayout
-    out_rows = [] if (batched or not need_planes) else [
-        whitened[s, 0] for s in range(n_fast)]
-    # materialized deep scales (the coefficients-reuse entry and any
-    # config whose deep planes already exist): power-only stream kernel
-    # when the geometry admits it, XLA otherwise.  preserve_variance
-    # needs the traced per-scale norm in the factor and gamma needs the
-    # masked-unwhitened plane — both stay on the XLA expression.
-    from ..ops import pallas_deep
-
-    interp = jax.default_backend() == "cpu"
-    for s in range(n_fast, tail_start):
-        c = plane(s)
-        if (not preserve_variance and gamma_scaled is None
-                and pallas_deep.can_deep_plane(
-                    c if batched else c[None], sf, s)):
-            cb = c if batched else c[None]
-            thr = ((denoise_coefficients[s] * float(sigma_e[s]))
-                   * noise32 if denoise_coefficients[s] != 0
-                   else jnp.zeros_like(noise32))
-            white = pallas_deep.deep_whiten_plane(
-                cb, thr, sf=sf, scale=s, weight=float(weights[s]),
-                soft=soft_threshold,
-                masked=denoise_coefficients[s] != 0, interpret=interp)
-            c = white if batched else white[0]
-        else:
-            c, masked = whiten_detail(c, s)
-            if gamma_scaled is not None:
-                gamma_scaled = gamma_scaled + masked
-        if need_planes:
-            out_rows.append(c)
-        recon = recon + c
-    # deferred tail scales: smooth carry chains without materializing
-    # unwhitened detail planes (the chain smooth is bilateral when the
-    # transform is; the *power* smooth stays plain, watroo/utils.py:194)
-    if tail is not None:
-        rows, recon, residual = _deep_tail_scales(
-            tail[0], recon, noise32, sf, tail_start, n_scales, weights,
-            denoise_coefficients, soft_threshold, sigma_e, sp_axes,
-            batched, bilateral=bilateral,
-            bilateral_scaling=bilateral_scaling,
-            write_planes=need_planes)
-        out_rows.extend(rows)
-    else:
-        residual = plane(n_scales)
-    # residual: global-std normalization (watroo/utils.py:185-191),
-    # per frame when batched
-    if batched:
-        lp = jnp.std(residual, axis=(-2, -1), keepdims=True)
-    else:
-        lp = jnp.std(residual)
-    lp = jnp.where(lp <= 0, jnp.asarray(1e-15, residual.dtype), lp)
-    # residual power norm is the (unclamped) std (watroo/utils.py:182)
-    pn = (jnp.std(residual, axis=(-2, -1) if batched else None,
-                  keepdims=batched)
-          if preserve_variance else jnp.asarray(1.0, residual.dtype))
-    c = residual * (weights[n_scales] * pn / lp)
-    if need_planes:
-        out_rows.append(c)
-    recon = recon + c
-    if gamma_scaled is not None:
-        # gamma-blend tone mapping (watroo/utils.py:205-217): the raw
-        # residual joins the masked-plane sum, then the normalized
-        # gamma stretch blends with the whitened reconstruction
-        gamma_scaled = gamma_scaled + residual
-        gax = (-2, -1) if batched else None
-        gmin = (jnp.min(gamma_scaled, axis=gax, keepdims=batched)
-                if gamma_min is None
-                else jnp.asarray(gamma_min, recon.dtype))
-        gmax = (jnp.max(gamma_scaled, axis=gax, keepdims=batched)
-                if gamma_max is None
-                else jnp.asarray(gamma_max, recon.dtype))
-        gs = (gamma_scaled - gmin) / (gmax - gmin)
-        gs = jnp.clip(gs, 0.0, 1.0) ** (1.0 / gamma)
-        recon = (1 - h) * recon + h * gs
-    # the (n_scales+1) cube only materializes if the caller consumes it
-    # (XLA dead-code-eliminates the stack on recon-only serving paths);
-    # batched output is (B, n_scales+1, H, W), matching a vmap of
-    # single-frame calls
-    if not need_planes:
-        return recon, None
-    if batched:
-        # the kernel sized the cube (B, n_scales+1, H, W) and wrote the
-        # fast rows; deep/residual rows drop in via in-place
-        # dynamic-update-slice — no concat copy of the fast slab
-        out = whitened
-        for s, row in zip(range(n_fast, n_scales + 1), out_rows):
-            out = jax.lax.dynamic_update_slice_in_dim(
-                out, row[:, None], s, axis=1)
-    elif planes_layout == "rows":
-        # separate plane arrays — no cube concat (see _wow_body_merged)
-        out = tuple(out_rows)
-    else:
-        out = stack_planes(out_rows)
-    return recon, out
 
 
 def _wow_body(
@@ -842,15 +183,14 @@ def _wow_body(
         out_planes.append(c)
 
     if planes_layout == "rows":
-        # separate plane arrays — no cube concat (see _wow_body_merged);
-        # the sequential adds fold in the same scale order as the
+        # separate plane arrays — no cube concat; the sequential adds fold in the same scale order as the
         # synthesize reduction
         out = tuple(out_planes)
         recon = out_planes[0]
         for c in out_planes[1:]:
             recon = recon + c
     else:
-        out = stack_planes(out_planes)
+        out = jnp.stack(out_planes)
         recon = synthesize(out)
 
     if h > 0:
@@ -871,7 +211,7 @@ def _wow_body(
         "sf", "n_scales", "weights", "whitening", "denoise_coefficients",
         "bilateral", "bilateral_scaling", "soft_threshold",
         "preserve_variance", "gamma", "gamma_min", "gamma_max", "h",
-        "has_noise", "axes", "fuse", "need_planes", "planes_layout",
+        "has_noise", "need_planes", "planes_layout",
     ),
 )
 def wow_core(
@@ -892,114 +232,26 @@ def wow_core(
     gamma_max: Optional[float],
     h: float,
     has_noise: bool,
-    axes: Optional[Tuple[int, ...]] = None,
-    fuse: bool = True,
     need_planes: bool = True,
     planes_layout: str = "cube",
 ):
-    """Fused decomposition + whitening from a raw image.  Returns
-    ``(recon, planes)``.  ``fuse=False`` disables the Pallas fast paths
-    (required under vmap); ``fuse="force"`` additionally waives the
-    CPU-backend opt-out in the dispatch gates so the kernels run in
-    interpret mode — the sharded engine uses it per shard so the forced
-    CPU test mesh exercises the exact hardware dispatch.
-    ``need_planes=False`` (serving paths that
-    discard the coefficients) skips the whitened plane-cube HBM writes
-    where the kernels support it and returns ``(recon, None)``; the
-    reconstruction is bitwise-identical either way (same tile plans,
-    same fold order).  ``planes_layout="rows"`` returns the planes as a
-    tuple of n_scales+1 arrays instead of one stacked cube — the same
-    values without the cube concatenation (measured 7.2 ms of the 18.9
-    ms 4k² L10 pipeline); batched (3-D) fast paths always produce the
-    cube (the kernels write it batch-major directly)."""
-    # NB: a fully-fused single-pass WOW kernel (decompose + power
-    # smooth + whiten in one launch) was built, verified, and measured
-    # ~60% SLOWER than the decompose+whiten kernel pair on v5e: its
-    # halo R = hw·(3·2^(L−1)−1) forces 256² tiles whose 6.25× window
-    # amplification makes it VPU-bound.  Removed in round 2 (git
-    # history: ops/pallas_mega.py); see DESIGN.md for the analysis.
-    if (fuse and BF16_MERGED and data.dtype == jnp.bfloat16
-            and whitening and h == 0 and bilateral is None
-            and not preserve_variance
-            and jax.default_backend() != "cpu"):
-        # opt-in bf16 fast path: the merged kernels are dtype-generic,
-        # and unlike the kernel-pair hybrid (measured slower than pure
-        # XLA in bf16) the merged path halves both reads and writes
-        spatial_ok = (data.ndim == 2 and axes is None) or (
-            data.ndim == 3 and axes is not None
-            and tuple(a % 3 for a in axes) == (1, 2))
-        lazy_masked = not has_noise and any(
-            d != 0 for d in denoise_coefficients[:n_scales])
-        if (spatial_ok and data.shape[-1] % 256 == 0
-                and data.shape[-2] % 256 == 0
-                and _can_merge_whiten(data, sf, n_scales, lazy_masked,
-                                      need_planes)):
-            return _wow_body_merged(
-                data, noise, has_noise, sf, n_scales, weights,
-                denoise_coefficients, soft_threshold,
-                need_planes=need_planes, planes_layout=planes_layout)
-    allow_cpu = fuse == "force"
-    lazy_masked = not has_noise and any(
-        d != 0 for d in denoise_coefficients[:n_scales])
-    spatial = tuple(range(data.ndim - 2, data.ndim))
-    spatial_ok = (axes is None and data.ndim == 2) or (
-        data.ndim in (2, 3) and axes is not None
-        and tuple(a % data.ndim for a in axes) == spatial)
-    if (fuse and whitening and h == 0 and bilateral is None
-            and not preserve_variance and spatial_ok
-            and data.dtype == jnp.float32
-            and _can_merge_whiten(data, sf, n_scales, lazy_masked,
-                                  need_planes, allow_cpu=allow_cpu)):
-        # merged gate hoisted above the tile-divisibility gate: the
-        # group kernels pad-and-crop non-multiple-of-256 shapes
-        # (bitwise, ops/pallas_conv._pad_split), so odd frames keep the
-        # fast path instead of silently dropping to 100% XLA
-        return _wow_body_merged(
-            data, noise, has_noise, sf, n_scales, weights,
-            denoise_coefficients, soft_threshold,
-            need_planes=need_planes, planes_layout=planes_layout)
-    if fuse and _can_fuse_whiten(data, axes, n_scales, whitening,
-                                 preserve_variance, h,
-                                 bilateral is not None,
-                                 allow_cpu=allow_cpu):
-        # preserve_variance / gamma blend need the materialized planes
-        # (per-scale mean power feeds the kernel's factor table; the
-        # gamma accumulator covers kernel scales only) — no deferral
-        force = True if allow_cpu else None
-        if preserve_variance or h > 0:
-            pieces, layout = decompose_pieces(
-                data, n_scales, sf, axes=axes, bilateral=bilateral,
-                bilateral_scaling=bilateral_scaling, use_pallas=force)
-            tail = None
-        else:
-            pieces, layout, tail = decompose_pieces(
-                data, n_scales, sf, axes=axes, bilateral=bilateral,
-                bilateral_scaling=bilateral_scaling, defer_tail=True,
-                use_pallas=force,
-            )
-        return _wow_body_fused(
-            pieces, layout, tail, noise, has_noise, sf, n_scales,
-            weights, denoise_coefficients, soft_threshold,
-            bilateral=bilateral, bilateral_scaling=bilateral_scaling,
-            preserve_variance=preserve_variance,
-            h=h, gamma=gamma, gamma_min=gamma_min, gamma_max=gamma_max,
-            need_planes=need_planes, planes_layout=planes_layout,
-        )
-    pieces, layout = decompose_pieces(
-        data, n_scales, sf, axes=axes, bilateral=bilateral,
-        bilateral_scaling=bilateral_scaling,
-        use_pallas=None if fuse else False,
-    )
-    planes = assemble_pieces(pieces, layout)
+    """Decomposition + whitening from a raw image, one XLA program per
+    (shape, config).  Returns ``(recon, planes)``.
+
+    ``need_planes=False`` (serving paths that discard the coefficients)
+    returns ``(recon, None)``; XLA then dead-code-eliminates the plane
+    stores.  ``planes_layout="rows"`` returns the planes as a tuple of
+    n_scales+1 arrays instead of one stacked cube — the same values
+    without the cube concatenation."""
+    planes = decompose(
+        data, n_scales, sf, bilateral=bilateral,
+        bilateral_scaling=bilateral_scaling)
     recon, out = _wow_body(
         planes, noise, has_noise, sf, n_scales, weights, whitening,
         denoise_coefficients, bilateral is not None, soft_threshold,
         preserve_variance, gamma, gamma_min, gamma_max, h,
-        rops=None if fuse else VmapSafeReduceOps(),
         planes_layout=planes_layout,
     )
-    # serving contract: need_planes=False always returns (recon, None);
-    # XLA dead-code-eliminates the unconsumed plane stack
     return (recon, out) if need_planes else (recon, None)
 
 
@@ -1031,36 +283,12 @@ def _wow_from_planes_core(
 ):
     """Whitening from a precomputed coefficient set (the
     ``wow(Coefficients)`` reuse entry, watroo/utils.py:128-133,152-155).
-    ``planes`` is the (n_scales+1, H, W) cube or — the lazy rows form
+    ``planes`` is the (n_scales+1, ...) cube or — the lazy rows form
     ``wow`` itself emits — a tuple of n_scales+1 per-scale arrays.
-
-    2-D f32 tileable inputs ride the fused Pallas whiten
-    (ops/pallas_wow.py) by presenting the planes as decompose *pieces*:
-    the cube is one piece with ``layout[s] = (0, s)``; rows are one
-    piece each with ``layout[s] = (s, 0)``.  ``bilateral`` here is only
-    a flag (the chain is already decomposed; the power smooth is plain
-    either way, watroo/utils.py:194) — it selects the σ_e table inside
-    the fused body via a placeholder σ list.  Everything else (CPU,
-    volumes, odd shapes, f64) runs the XLA body."""
+    ``bilateral`` here is only a flag: it selects the σ_e table (the
+    power smooth is plain either way, watroo/utils.py:194)."""
     rows = planes if isinstance(planes, tuple) else None
-    first = rows[0] if rows is not None else planes[0]
-    if _can_fuse_whiten(first, None, n_scales, whitening,
-                        preserve_variance, h, bilateral):
-        if rows is not None:
-            pieces = tuple(r[None] for r in rows)
-            layout = tuple((s, 0) for s in range(n_scales + 1))
-        else:
-            pieces = (planes,)
-            layout = tuple((0, s) for s in range(n_scales + 1))
-        return _wow_body_fused(
-            pieces, layout, None, noise, has_noise, sf, n_scales,
-            weights, denoise_coefficients, soft_threshold,
-            bilateral=(1.0,) * (n_scales + 1) if bilateral else None,
-            preserve_variance=preserve_variance,
-            h=h, gamma=gamma, gamma_min=gamma_min, gamma_max=gamma_max,
-            planes_layout="rows",
-        )
-    cube = stack_planes(list(planes)) if rows is not None else planes
+    cube = jnp.stack(list(planes)) if rows is not None else planes
     return _wow_body(
         cube, noise, has_noise, sf, n_scales, weights, whitening,
         denoise_coefficients, bilateral, soft_threshold,
@@ -1163,45 +391,40 @@ def wow(data,
     return recon, coeffs
 
 
-def _stack_core(data, noise_arr, with_coefficients, statics, force=False):
-    """Batched (B, H, W) stack dispatch shared by :func:`wow_stack` and
-    the sharded engine's data-axis fast path
-    (wavelets_tpu/parallel/sharded.py): the batched fused/merged Pallas
-    kernels when the gates admit, per-frame vmap of the XLA path
-    otherwise.  ``force=True`` waives the CPU-backend opt-out in the
-    gates (the kernels run in interpret mode) so the forced CPU test
-    mesh exercises the exact hardware dispatch per shard."""
-    h = statics["h"]
-    n_scales = statics["n_scales"]
-    lazy_masked = not statics["has_noise"] and any(
-        d != 0 for d in statics["denoise_coefficients"][:n_scales])
-    serving_merge = (not with_coefficients and statics["whitening"]
-                     and h == 0 and statics["bilateral"] is None
-                     and not statics["preserve_variance"]
-                     and data.dtype == jnp.float32
-                     and _can_merge_whiten(data, statics["sf"], n_scales,
-                                           lazy_masked, need_planes=False,
-                                           allow_cpu=force))
-    if serving_merge or _can_fuse_whiten(
-            data, (1, 2), n_scales, statics["whitening"],
-            statics["preserve_variance"], h,
-            statics["bilateral"] is not None, allow_cpu=force):
-        # batched Pallas fast path: the fused kernels carry the frame
-        # dimension on a leading grid axis (no vmap, no per-frame
-        # dispatch); statistics are per frame inside the bodies
-        return wow_core(data, noise_arr, axes=(1, 2),
-                        fuse="force" if force else True,
-                        need_planes=with_coefficients, **statics)
-    # fallback (h >= 1 / preserve_variance / CPU / odd shapes):
-    # per-frame vmap of the XLA path (Pallas kernels cannot run under
-    # vmap)
-    fn = jax.vmap(lambda d, nz: wow_core(d, nz, fuse=False, **statics),
-                  in_axes=(0, 0))
-    if with_coefficients:
-        return fn(data, noise_arr)
-    # jit so XLA dead-code-eliminates the unused plane cube
-    recon = jax.jit(lambda d, nz: fn(d, nz)[0])(data, noise_arr)
-    return recon, None
+def _stack_core(data, noise_arr, with_coefficients, statics):
+    """Batched (B, H, W) stack: one batched decomposition, then a
+    per-frame ``vmap`` of the whitening body, so every statistic (MAD
+    noise, residual std, gamma bounds) is per frame.  Shared by
+    :func:`wow_stack` and the sharded engine's data-axis path
+    (wavelets_tpu/parallel/sharded.py)."""
+    return _stack_program(data, noise_arr, need_planes=with_coefficients,
+                          statics=tuple(sorted(statics.items())))
+
+
+@partial(jax.jit, static_argnames=("need_planes", "statics"))
+def _stack_program(data, noise_arr, *, need_planes, statics):
+    # one cached program per (shape, config): without planes XLA
+    # dead-code-eliminates the plane stores
+    st = dict(statics)
+    sf, n, bil = st["sf"], st["n_scales"], st["bilateral"]
+    planes = decompose(data, n, sf, axes=(1, 2), bilateral=bil,
+                       bilateral_scaling=st["bilateral_scaling"])
+    has_noise = st["has_noise"]
+    if not has_noise and any(d != 0 for d in st["denoise_coefficients"][:n]):
+        # the lazy MAD noise (watroo/wavelets.py:126-127) per frame,
+        # outside the vmap: one sort per frame instead of the batched
+        # sort vmap would make of it (ops/stats.median_abs_frames)
+        noise_arr = mad_noise_frames(
+            planes[0], float(sf.sigma_e(2, bil is not None)[0]))
+        noise_arr = noise_arr.astype(data.dtype)
+        has_noise = True
+    body = lambda p, nz: _wow_body(
+        p, nz, has_noise, sf, n, st["weights"], st["whitening"],
+        st["denoise_coefficients"], bil is not None, st["soft_threshold"],
+        st["preserve_variance"], st["gamma"], st["gamma_min"],
+        st["gamma_max"], st["h"])
+    recon, out = jax.vmap(body, in_axes=(1, 0))(planes, noise_arr)
+    return recon, (out if need_planes else None)
 
 
 def wow_stack(data, noise=None, with_coefficients=True, **kwargs):
@@ -1212,8 +435,8 @@ def wow_stack(data, noise=None, with_coefficients=True, **kwargs):
     (B, n_scales+1, H, W))``.
 
     ``with_coefficients=False`` skips materializing the plane cube in
-    HBM (the fused kernels drop their plane writes; the reconstruction
-    is unchanged) and returns ``(recon, None)`` — the fast mode for
+    device memory (XLA drops the plane stores; the reconstruction is
+    unchanged) and returns ``(recon, None)`` — the fast mode for
     serving pipelines that only keep the enhanced frames
     (:func:`wavelets_tpu.models.pipeline.process_stack`).
 

@@ -9,9 +9,7 @@ Replaces the reference's native delegations — ``cv2.filter2D`` for 2-D/3-D
   materialized and never cost FLOPs or bandwidth.
 * The separable n-D smoothing is two/three 1-D passes.  Each pass is a
   static unrolled sum of ``k`` dilated-shifted slices of a padded array —
-  pure VPU work that XLA fuses into a single elementwise loop per pass.
-  (The fused multi-scale Pallas kernel in ``pallas_conv.py`` goes further
-  and keeps the whole scale pyramid in VMEM.)
+  elementwise work that XLA fuses into a single loop per pass.
 * Symmetric taps (both reference filters) are folded pairwise:
   ``t_j·(x←j + x→j)``, halving the multiplies.
 * Boundary conventions match the reference *per dimensionality*
@@ -175,11 +173,11 @@ def atrous_conv_nd(
 ) -> jax.Array:
     """Generic n-D à trous convolution, plus the bilateral variant.
 
-    TPU-native rewrite of ``atrous_convolution`` (watroo/wavelets.py:74-105):
+    Rewrite of ``atrous_convolution`` (watroo/wavelets.py:74-105):
     the per-tap loop is unrolled at trace time; the bilateral range weight
     ``k·exp(−(x−x_shift)²/(2σ²))`` and its normalizer accumulate in the same
     fused elementwise program — no materialized ``shifted``/``weight``
-    temporaries round-tripping through HBM.
+    temporaries round-tripping through device memory.
 
     ``kernel`` is the dense *undilated* n-D kernel (host constant); dilation
     ``2**scale`` is applied to the tap offsets, so the kernel zeros are never

@@ -1,10 +1,10 @@
-"""Scaling-function filter bank: pure static data, TPU-friendly by design.
+"""Scaling-function filter bank: pure static data.
 
 The reference represents scaling functions as classes holding 1-D taps and
 hard-coded per-scale noise tables (``watroo/wavelets.py:152-287``).  Here a
 scaling function is a frozen, hashable dataclass so it can be a *static*
 argument to ``jax.jit``-compiled transforms: the taps unroll into the
-compiled program as constants (held in registers/VMEM by the compiler),
+compiled program as constants,
 and the dilated "à trous" kernel is never materialized — dilation is an
 indexing stride in the convolution, not zeros that burn FLOPs.
 

@@ -1,6 +1,6 @@
 """Coefficient statistics: noise estimation, significance, thresholds.
 
-TPU-native rewrites of the reference's coefficient algebra
+Rewrites of the reference's coefficient algebra
 (``watroo/wavelets.py:14-21`` Anscombe, ``:126-149`` noise/significance/
 denoise).  Everything is elementwise or a single global reduction, and
 fuses into the surrounding jitted pipeline.
@@ -10,9 +10,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from jax import lax
 
-from .layout import stack_planes
 
 __all__ = [
     "generalized_anscombe",
@@ -44,121 +42,23 @@ def generalized_anscombe(signal, alpha=1.0, g=0.0, sigma=0.0, inverse=False):
     return 2 * jnp.sqrt(dum) / alpha
 
 
-def _median_nonneg_bisect(a: jax.Array) -> jax.Array:
-    """Exact median of non-negative ``a`` without sorting.
-
-    IEEE floats ≥ 0 order like their integer bit patterns, so the k-th
-    order statistic is found by a multiway bisection over bit patterns
-    with rank counting — O(passes) streaming reductions instead of a
-    full sort (XLA's TPU sort is orders of magnitude slower for large
-    planes).  Both middle order statistics (numpy even-count semantics)
-    are tracked in the same passes.  Matches ``np.median`` exactly.
-    """
-    a = a.ravel()
-    n = a.size
-    nbits = jnp.dtype(a.dtype).itemsize * 8
-    udt = {2: jnp.uint16, 4: jnp.uint32, 8: jnp.uint64}[
-        jnp.dtype(a.dtype).itemsize]
-    bits = lax.bitcast_convert_type(a, udt)
-    ks = jnp.asarray([(n - 1) // 2, n // 2], dtype=jnp.int64
-                     if jax.config.jax_enable_x64 else jnp.int32)
-
-    K = 16  # 16-way bisection: each pass digitizes into K buckets and
-    # reduces a one-hot count — one streaming read per search per pass
-    n_multi = (nbits + 3) // 4 + 1  # span /16 per pass (+O(K) slack)
-    n_binary = 6                    # cleanup of the flooring slack
-    arange_k = lax.broadcasted_iota(udt, (1, K), 1)
-
-    def search(k):
-        lo = jnp.zeros((), udt)
-        hi = ~jnp.zeros((), udt) >> 1
-
-        def multiway(_, state):
-            lo, hi = state
-            step = jnp.maximum((hi - lo) // K, 1)
-            bucket = jnp.minimum(
-                (jnp.clip(bits, lo, hi) - lo) // step, K - 1)
-            counts = jnp.sum(bucket[:, None] == arange_k, axis=0)
-            cum = jnp.cumsum(counts)  # cum[j] = #{bucket <= j}
-            # pre_j = #{bits <= lo + j*step - 1} = cum[j-1]
-            pre = jnp.concatenate([jnp.zeros((1,), cum.dtype), cum[:-1]])
-            # largest j with pre_j < k+1  ⇒  kth ∈ [lo+j·step, ...]
-            jstar = jnp.sum(pre < k + 1) - 1
-            new_lo = lo + jstar.astype(udt) * step
-            in_next = (jstar < K - 1) & (
-                pre[jnp.minimum(jstar + 1, K - 1)] >= k + 1)
-            new_hi = jnp.where(
-                in_next, new_lo + step - 1, hi)
-            return new_lo, jnp.maximum(new_hi, new_lo)
-
-        def binary(_, state):
-            lo, hi = state
-            mid = lo + (hi - lo) // 2
-            cnt = jnp.sum(bits <= mid)
-            ge = cnt >= k + 1
-            return jnp.where(ge, lo, mid + 1), jnp.where(ge, mid, hi)
-
-        lo, hi = lax.fori_loop(0, n_multi, multiway, (lo, hi))
-        lo, hi = lax.fori_loop(0, n_binary, binary, (lo, hi))
-        return lax.bitcast_convert_type(hi, a.dtype)
-
-    k_lo = (n - 1) // 2
-    k_hi = n // 2
-    v_lo = search(k_lo)
-    if k_hi == k_lo:
-        return v_lo
-    return (v_lo + search(k_hi)) / 2
-
-
-def _median_nonneg_pallas(a: jax.Array) -> jax.Array:
-    """Exact median via a single-launch Pallas rank-count bisection
-    (ops/pallas_stats.py): the whole 10-pass streaming selection runs in
-    one kernel.  Both middle order statistics (numpy even-count
-    semantics) are tracked in the same passes.  Requires n % 1024 == 0
-    and f32."""
-    from .pallas_stats import median_bits2
-
-    a = a.ravel()
-    n = a.size
-    # non-negative f32 bit patterns fit in non-negative int32, so signed
-    # comparisons preserve order
-    bits = lax.bitcast_convert_type(a, jnp.int32).reshape(n // 1024, 1024)
-    ks = jnp.asarray([(n - 1) // 2, n // 2], jnp.int32)
-    pats = median_bits2(bits, ks,
-                        interpret=jax.default_backend() == "cpu")
-    vals = lax.bitcast_convert_type(pats, jnp.float32)
-    return (vals[0] + vals[1]) / 2
-
-
 def median_abs(x: jax.Array) -> jax.Array:
-    """``median(|x|)`` — XLA sort on CPU (fast there), exact bit-pattern
-    bisection on accelerators (where the sort is pathologically slow)."""
-    a = jnp.abs(x)
-    if jax.default_backend() == "cpu":
-        return jnp.median(a)
-    if a.size % 1024 == 0 and a.dtype in (jnp.float32,):
-        return _median_nonneg_pallas(a)
-    return _median_nonneg_bisect(a)
+    """``median(|x|)`` with numpy semantics (mean of the two middle order
+    statistics for even counts), by sorting.
+
+    One H100 (400 W limit) took 1.07 ms for a 4096² plane, against
+    2.65 ms for a 30-pass bit-pattern bisection; see
+    :func:`median_abs_frames` for stacks."""
+    return jnp.median(jnp.abs(x))
 
 
 def median_abs_frames(x: jax.Array) -> jax.Array:
-    """Per-frame ``median(|x|)`` over a stack ``(B, ...)`` → ``(B,)``.
-
-    One batched Pallas selection launch on TPU (the batch rides a
-    leading sequential grid dimension); sort on CPU; vmapped bisection
-    otherwise."""
-    a = jnp.abs(x)
-    B = a.shape[0]
-    n = a.size // B
-    if jax.default_backend() == "cpu":
-        return jnp.median(a.reshape(B, n), axis=1)
-    if n % 1024 == 0 and a.dtype in (jnp.float32,):
-        # B unrolled single-frame selection launches: measured faster
-        # than one batched-grid launch (a leading (1, CH, cols) block
-        # dim costs ~3x per frame on v5e Mosaic)
-        return jnp.stack([_median_nonneg_pallas(a[b])
-                          for b in range(B)])
-    return jax.vmap(_median_nonneg_bisect)(a.reshape(B, n))
+    """Per-frame ``median(|x|)`` over a stack ``(B, ...)`` → ``(B,)``:
+    one whole-plane sort per frame.  A single sort along the frame axis
+    (``jnp.median(..., axis=1)``, also what ``vmap`` of
+    :func:`median_abs` becomes) took 38.4 ms for 4×4096² on one H100,
+    against 1.07 ms per plane sorted alone."""
+    return jnp.stack([median_abs(x[b]) for b in range(x.shape[0])])
 
 
 def mad_noise(w0: jax.Array, sigma_e0: float) -> jax.Array:
@@ -246,4 +146,4 @@ def apply_denoise(
             else:
                 c = c * wgt
         out.append(c)
-    return stack_planes(out)
+    return jnp.stack(out)

@@ -3,8 +3,7 @@
 This is the spatial analog of sequence/context parallelism (SURVEY §2.3):
 the à trous kernel at scale ``s`` reaches ``hw·2^s`` pixels, so a tile
 needs exactly that many boundary rows/cols from each neighbor before the
-stencil — exchanged with ``lax.ppermute`` over the mesh ring (ICI
-neighbors).  Global image borders apply the reference's per-ndim
+stencil — exchanged with ``lax.ppermute`` between mesh neighbors.  Global image borders apply the reference's per-ndim
 reflection locally on the edge shards, so the sharded result is
 *bitwise identical* to the single-device transform (same values, same
 accumulation order per element).

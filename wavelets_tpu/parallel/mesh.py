@@ -1,10 +1,11 @@
 """Device mesh construction for the sharded wavelet engine.
 
-The reference has no parallelism of any kind (SURVEY §2.3); the TPU-native
-design shards a batch ("data") axis plus a 2-D spatial tiling
-("rows" × "cols") over the chips of a slice.  Collectives ride ICI within
-a slice; multi-host setups go through ``jax.distributed.initialize`` +
-the same mesh API over DCN."""
+The reference has no parallelism of any kind (SURVEY §2.3); this engine
+shards a batch ("data") axis plus a 2-D spatial tiling ("rows" × "cols")
+over the devices.  The mesh shape follows the algorithm alone: the cards
+of one host are joined all to all (NVLink), so no axis order is closer
+than another.  Multi-host setups go through ``jax.distributed.initialize``
++ the same mesh API."""
 
 from __future__ import annotations
 
@@ -25,10 +26,10 @@ __all__ = ["make_mesh", "init_distributed", "DATA_AXIS", "ROW_AXIS",
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> None:
-    """Initialize the multi-host process group (DCN) before building a
-    mesh that spans hosts.  Thin wrapper over
-    ``jax.distributed.initialize`` so the framework has one entry point;
-    arguments default to the standard cluster-environment autodetection."""
+    """Initialize the multi-host process group before building a mesh
+    that spans hosts.  Thin wrapper over ``jax.distributed.initialize``
+    so the framework has one entry point.  Where no cluster environment
+    describes the job, pass all three arguments."""
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
@@ -42,11 +43,8 @@ def make_mesh(
     cols: int = 1,
     devices: Optional[Sequence[jax.Device]] = None,
 ) -> Mesh:
-    """Build a ``(data, rows, cols)`` mesh over the available devices.
-
-    The data axis is placed outermost so that the spatial (halo-exchange)
-    axes map to nearest-neighbor ICI links within each data-parallel
-    replica group."""
+    """Build a ``(data, rows, cols)`` mesh over the available devices,
+    taken in ``jax.devices()`` order."""
     if devices is None:
         devices = jax.devices()
     n = data * rows * cols

@@ -1,9 +1,9 @@
 """Sharded à trous transform and WOW over a device mesh.
 
-The TPU-native scaling layer the reference lacks entirely (SURVEY §2.3):
+The scaling layer the reference lacks entirely (SURVEY §2.3):
 images (or frame stacks) are tiled over a ``(data, rows, cols)`` mesh
 with ``shard_map``; every scale-``s`` convolution exchanges ``hw·2^s``
-boundary rows/cols with ring neighbors (``ppermute`` over ICI), global
+boundary rows/cols with mesh neighbors (``ppermute``), global
 statistics (MAD noise median, residual std, gamma min/max) become
 collectives, and the whole pipeline still compiles to one SPMD program.
 
@@ -27,8 +27,6 @@ from ..core.transform import normalize_bilateral
 from ..models.wow import _stack_core, _wow_body, normalize_wow_params
 from ..ops.conv import _noncenter_offsets
 from ..ops.filters import ScalingFunction
-from ..ops.layout import stack_planes
-from ..ops.stats import significance
 from .halo import halo_exchange_axis, halo_smooth_axis
 from .mesh import COL_AXIS, DATA_AXIS, ROW_AXIS
 from .reductions import (
@@ -180,7 +178,7 @@ def _decompose_local(
         planes.append(c - c_next)
         c = c_next
     planes.append(c)
-    return stack_planes(planes)
+    return jnp.stack(planes)
 
 
 def _specs(mesh: Mesh, batched: bool):
@@ -199,7 +197,7 @@ def _mesh_dims(mesh: Mesh):
 #: jitted shard_map programs, keyed on (mesh, shapes, statics):
 #: sharded_wow builds a fresh shard_map closure per call, which would
 #: otherwise defeat jax.jit's cache and recompile every invocation —
-#: fatal for serving loops (a 4k stage-1 program compiles in ~12 s).
+#: fatal for serving loops.
 #: LRU-bounded: a long-lived serving process cycling shapes/configs
 #: must not pin every compiled executable (each holds device buffers
 #: and host IR); 32 programs comfortably covers a serving fleet's
@@ -249,224 +247,6 @@ def sharded_decompose(
     return jax.jit(fn)(x)
 
 
-def _band_axes():
-    """Linearized (rows, cols) collective axes: band index
-    ``i_row·n_cols + j_col`` orders full-width row bands top-to-bottom."""
-    return (ROW_AXIS, COL_AXIS)
-
-
-def _band_index(n_cols: int):
-    return lax.axis_index(ROW_AXIS) * n_cols + lax.axis_index(COL_AXIS)
-
-
-def _band_halo_extend(x, h: int, nb: int, n_cols: int, axis: int):
-    """Extend a full-width row band by ``h`` rows per side: interior
-    halos from ring neighbors over the linearized (rows, cols) axes;
-    the first/last band substitutes the reference symmetric reflection.
-    Requires ``h <= band extent`` (single-neighbor reach)."""
-    n = x.shape[axis]
-    names = _band_axes()
-    my_top = lax.slice_in_dim(x, 0, h, axis=axis)
-    my_bot = lax.slice_in_dim(x, n - h, n, axis=axis)
-    from_above = lax.ppermute(
-        my_bot, names, [(b, b + 1) for b in range(nb - 1)])
-    from_below = lax.ppermute(
-        my_top, names, [(b + 1, b) for b in range(nb - 1)])
-    refl_top = jnp.flip(lax.slice_in_dim(x, 0, h, axis=axis), axis=axis)
-    refl_bot = jnp.flip(lax.slice_in_dim(x, n - h, n, axis=axis),
-                        axis=axis)
-    b = _band_index(n_cols)
-    top = jnp.where(b == 0, refl_top, from_above)
-    bot = jnp.where(b == nb - 1, refl_bot, from_below)
-    return jnp.concatenate([top, x, bot], axis=axis)
-
-
-def _band_gather_extend(x, h: int, nb: int, n_cols: int, axis: int):
-    """Deep-reach extension (``h`` > band extent): all_gather the full
-    plane over the linearized axes, symmetric-pad by ``h``, and slice
-    this band's window back.  The carry at such scales is heavily
-    smoothed but full-resolution — the gather is the unavoidable
-    Ω(image) communication of an undecimated deep scale (see
-    DESIGN.md scaling model)."""
-    n = x.shape[axis]
-    full = lax.all_gather(x, _band_axes(), axis=axis, tiled=True)
-    pad = [(0, 0)] * full.ndim
-    pad[axis] = (h, h)
-    padded = jnp.pad(full, pad, mode="symmetric")
-    b = _band_index(n_cols)
-    return lax.dynamic_slice_in_dim(padded, b * n, n + 2 * h, axis=axis)
-
-
-def _deep_tail_band_plan(Hl: int, Wl: int, n_cols: int, dtype, sf,
-                         covered: int, n_scales: int):
-    """Static feasibility of the band-resharded sharded deep tail: every
-    scale past ``covered`` must admit the halo-mode stream kernel on
-    (Hb = Hl/n_cols, W = Wl·n_cols) bands.  Returns Hb or 0."""
-    from ..ops import pallas_deep
-
-    if covered >= n_scales:
-        return 0
-    if Hl % n_cols:
-        return 0
-    Hb, W = Hl // n_cols, Wl * n_cols
-    for s in range(covered, n_scales):
-        if not pallas_deep.can_deep_halo(Hb, W, dtype, sf, s):
-            return 0
-    return Hb
-
-
-def _tiled_wow_plan(Hl: int, Wl: int, n_scales: int,
-                    sf: ScalingFunction):
-    """Whiten-group plan for a spatially tiled mesh: the longest prefix
-    of scales coverable by the fused decompose+whiten kernels on the
-    *local* block, truncated where a group's halo would exceed the
-    single-neighbor ring reach (halo.py requires ``R <= local
-    extent``).  Scales past the prefix run the XLA halo chain."""
-    from ..ops import pallas_conv
-
-    if min(Hl, Wl) < 256:
-        return [], 0
-    groups, covered = pallas_conv.plan_wow_prefix(
-        Hl, Wl, n_scales, sf.half_width, 4)
-    out, cov = [], 0
-    for off, g in groups:
-        if pallas_conv._wow_group_halo(sf.half_width, off, g) > min(Hl, Wl):
-            break
-        out.append((off, g))
-        cov += g
-    return out, cov
-
-
-def _tiled_wow_local(
-    x, noise_v, *, groups, covered, sf, n_scales, weights, dcs,
-    soft_threshold, has_noise, n_rows, n_cols, rops, with_coefficients,
-    interpret, band_rows=0,
-):
-    """Stage-2 sharded WOW body: per whiten group, halo-extend the
-    local block by the group reach (overlap-save — the same bitwise
-    argument as ops/pallas_conv._pad_split: every cropped output value
-    reads only genuine neighbor data), run the fused decompose+whiten
-    kernel locally, crop; uncovered/deep scales run the XLA halo chain
-    (deep reaches approach the tile extent, where halo_smooth_axis
-    degrades to the tiled all_gather).  Statistics are collectives via
-    ``rops``.  Matches the single-device fast path to kernel-vs-XLA
-    tolerance (the deep scales swap the stream kernel for the identical
-    XLA folds)."""
-    from ..ops import pallas_conv
-
-    sigma_e = sf.sigma_e(2, False)
-    batched = x.ndim == 3
-    if not has_noise and any(d != 0 for d in dcs[:n_scales]):
-        w0 = x - _smooth_local(x, sf, 0, n_rows, n_cols)
-        med = rops.median_abs(w0)
-        noise_v = (med / 0.6745 / float(sigma_e[0]))
-        noise_v = noise_v.reshape(noise_v.shape[:x.ndim - 2])
-    noise32 = jnp.asarray(noise_v, jnp.float32)
-    if batched and noise32.ndim == 0:
-        noise32 = jnp.broadcast_to(noise32, (x.shape[0],))
-    noise_b = noise32[:, None, None] if batched else noise32
-
-    out_rows = []
-    recon = None
-    cur = x
-    for off, g in groups:
-        R = pallas_conv._wow_group_halo(sf.half_width, off, g)
-        ext = _halo_extend_2d(cur, R, n_rows, n_cols)
-        fac = jnp.asarray([weights[off + k] for k in range(g)],
-                          jnp.float32)
-        thr = jnp.stack([
-            (dcs[off + k] * float(sigma_e[off + k])) * noise32
-            if dcs[off + k] != 0 else jnp.zeros_like(noise32)
-            for k in range(g)])
-        masked = tuple(dcs[off + k] != 0 for k in range(g))
-        rows_g, acc = pallas_conv._fused_wow_group(
-            ext, fac, thr, g, sf, offset=off, soft=soft_threshold,
-            masked=masked, need_cube=with_coefficients,
-            interpret=interpret)
-        crop = lambda a: a[..., R:-R, R:-R]
-        if with_coefficients:
-            out_rows.extend(crop(rows_g[k]) for k in range(g))
-        cur = crop(rows_g[g if with_coefficients else 0])
-        acc = crop(acc)
-        recon = acc if recon is None else recon + acc
-
-    if band_rows and covered < n_scales:
-        # ---- sharded deep tail on the stream kernels (round 5) ------
-        # Reshard (rows, cols) tiles to full-width row bands (one
-        # all_to_all over the col ring — identity when n_cols == 1),
-        # run the halo-mode deep stream kernel per band with ppermute
-        # halos (all_gather-built windows where the reach exceeds the
-        # band), reshard back.  Replaces the per-scale XLA halo chain
-        # (~2.2 ms/scale at 4k on v5e) with the same kernels the
-        # single-chip fast path runs.
-        from ..ops import pallas_deep
-
-        nb = n_rows * n_cols
-        row_ax, col_ax = cur.ndim - 2, cur.ndim - 1
-
-        def to_band(a):
-            if n_cols == 1:
-                return a
-            return lax.all_to_all(a, COL_AXIS, split_axis=row_ax,
-                                  concat_axis=col_ax, tiled=True)
-
-        def from_band(a):
-            if n_cols == 1:
-                return a
-            return lax.all_to_all(a, COL_AXIS, split_axis=col_ax,
-                                  concat_axis=row_ax, tiled=True)
-
-        cur_b = to_band(cur)
-        recon_b = to_band(recon)
-        for s in range(covered, n_scales):
-            R = 2 * sf.half_width * (1 << s)
-            if R <= band_rows:
-                ext = _band_halo_extend(cur_b, R, nb, n_cols, row_ax)
-            else:
-                ext = _band_gather_extend(cur_b, R, nb, n_cols, row_ax)
-            thr = ((dcs[s] * float(sigma_e[s])) * noise32
-                   if dcs[s] != 0 else jnp.zeros_like(noise32))
-            eb = ext if batched else ext[None]
-            white, _, cb = pallas_deep.deep_whiten_step(
-                eb, None, thr, sf=sf, scale=s,
-                weight=float(weights[s]), soft=soft_threshold,
-                masked=dcs[s] != 0, write_plane=True,
-                interpret=interpret, halo=R)
-            w = white if batched else white[0]
-            if with_coefficients:
-                out_rows.append(from_band(w))
-            recon_b = recon_b + w
-            cur_b = cb if batched else cb[0]
-        cur = from_band(cur_b)
-        recon = from_band(recon_b)
-    else:
-        for s in range(covered, n_scales):
-            c_next = _smooth_local(cur, sf, s, n_rows, n_cols)
-            c = cur - c_next
-            lp = _smooth_local(c * c, sf, s, n_rows, n_cols)
-            lp = jnp.sqrt(jnp.where(lp <= 0,
-                                    jnp.asarray(1e-15, c.dtype), lp))
-            if dcs[s] != 0:
-                c = c * significance(c, dcs[s], noise_b,
-                                     float(sigma_e[s]), soft_threshold)
-            c = c * (weights[s] / lp)
-            if with_coefficients:
-                out_rows.append(c)
-            recon = c if recon is None else recon + c
-            cur = c_next
-
-    lp = rops.std(cur)
-    lp = jnp.where(lp <= 0, jnp.asarray(1e-15, cur.dtype), lp)
-    c = cur * (weights[n_scales] / lp)
-    recon = recon + c
-    if not with_coefficients:
-        return recon
-    out_rows.append(c)
-    if batched:
-        return recon, jnp.stack(out_rows, axis=1)
-    return recon, stack_planes(out_rows)
-
-
 def sharded_wow(
     data: jax.Array,
     mesh: Mesh,
@@ -496,16 +276,12 @@ def sharded_wow(
     H, W)``, matching :func:`~wavelets_tpu.models.wow.wow_stack`.
     ``with_coefficients=False`` returns ``(recon, None)`` and lets XLA
     dead-code-eliminate the plane cube (per-shard plane stores and
-    their HBM footprint disappear under jit).
+    their device memory disappear under jit).
 
-    Dispatch mirrors the single-device engine: a data-axis-only mesh
-    routes each shard (whole frames) through the same fused/merged
-    Pallas kernels as :func:`wow_stack`; a spatially tiled mesh runs
-    the fused whiten groups on halo-extended local blocks
-    (:func:`_tiled_wow_local`).  Configurations outside the fast gates
-    (bilateral, gamma blend, preserve_variance, f64) run the XLA halo
-    body.  On the forced CPU test mesh the kernels run in interpret
-    mode so tests exercise the hardware dispatch."""
+    A data-axis-only mesh runs each shard (whole frames) through the
+    same per-frame program as :func:`wow_stack`; a spatially tiled mesh
+    runs the halo-exchange body, with global statistics as
+    collectives."""
     from ..ops.filters import B3SPLINE
 
     if sf is None:
@@ -532,11 +308,10 @@ def sharded_wow(
     planes_spec = (P(DATA_AXIS, None, ROW_AXIS, COL_AXIS) if batched
                    else P(None, ROW_AXIS, COL_AXIS))
     rops = ShardedReduceOps(total_count, batch_ndim)
-    force = jax.default_backend() == "cpu"
 
-    # ---- stage 1: data-axis-only mesh — shards are whole frames; the
-    # single-device stack dispatch (fused/merged kernels, per-frame
-    # statistics) is correct and fastest per shard, no collectives
+    # ---- data-axis-only mesh: shards are whole frames; the
+    # single-device stack program (per-frame statistics) runs per
+    # shard with no collectives
     if batched and n_rows == 1 and n_cols == 1:
         statics = dict(
             sf=sf, n_scales=n_scales, weights=rec_w,
@@ -556,62 +331,25 @@ def sharded_wow(
         noise_spec = P(DATA_AXIS)
 
         def local_stack(x, nz):
-            r, p = _stack_core(x, nz, with_coefficients, statics,
-                               force=force)
+            r, p = _stack_core(x, nz, with_coefficients, statics)
             return (r, p) if with_coefficients else r
 
-        # check_vma=False: pallas_call outputs carry no varying-mesh
-        # annotation, which the default vma check rejects
         key = ("stack", mesh, data.shape, str(data.dtype),
-               with_coefficients, force,
+               with_coefficients,
                tuple(sorted(statics.items(), key=lambda kv: kv[0])))
         fn = _cached_jit(key, lambda: shard_map(
             local_stack, mesh=mesh,
             in_specs=(data_spec, noise_spec),
             out_specs=((data_spec, planes_spec) if with_coefficients
-                       else data_spec),
-            check_vma=False))
+                       else data_spec)))
         data = jax.device_put(data, NamedSharding(mesh, data_spec))
         noise_arr = jax.device_put(
             noise_arr, NamedSharding(mesh, noise_spec))
         out = fn(data, noise_arr)
         return out if with_coefficients else (out, None)
 
-    # ---- stage 2: spatially tiled mesh, fast configuration — fused
-    # whiten groups on halo-extended blocks, XLA halo chain for the
-    # deep tail
-    fast2 = (whitening and float(h) == 0 and sigma_bilateral is None
-             and not preserve_variance and data.dtype == jnp.float32)
-    if fast2:
-        Hl = spatial_shape[0] // n_rows
-        Wl = spatial_shape[1] // n_cols
-        groups, covered = _tiled_wow_plan(Hl, Wl, n_scales, sf)
-        if covered >= 1:
-            band_rows = _deep_tail_band_plan(
-                Hl, Wl, n_cols, data.dtype, sf, covered, n_scales)
-            local_tiled = partial(
-                _tiled_wow_local, groups=tuple(groups), covered=covered,
-                sf=sf, n_scales=n_scales, weights=rec_w, dcs=dcs,
-                soft_threshold=bool(soft_threshold), has_noise=has_noise,
-                n_rows=n_rows, n_cols=n_cols, rops=rops,
-                with_coefficients=with_coefficients, interpret=force,
-                band_rows=band_rows)
-            noise_spec = (P(DATA_AXIS)
-                          if batched and noise_arr.ndim == 1 else P())
-            key = ("tiled", mesh, data.shape, str(data.dtype),
-                   with_coefficients, force, tuple(groups), n_scales,
-                   rec_w, dcs, bool(soft_threshold), has_noise,
-                   noise_arr.ndim, sf, band_rows)
-            fn = _cached_jit(key, lambda: shard_map(
-                local_tiled, mesh=mesh,
-                in_specs=(data_spec, noise_spec),
-                out_specs=((data_spec, planes_spec) if with_coefficients
-                           else data_spec),
-                check_vma=False))
-            data = jax.device_put(data, NamedSharding(mesh, data_spec))
-            out = fn(data, noise_arr)
-            return out if with_coefficients else (out, None)
-
+    # ---- spatially tiled mesh: halo-exchange body with collective
+    # statistics
     def local(x, noise_v):
         planes = _decompose_local(
             x, n_scales, sf, n_rows, n_cols, sigma_bilateral,

@@ -1,7 +1,9 @@
 from .noise_calibration import compute_noise_weights
 from .io import save_coefficients, load_coefficients
 from .frameio import FrameStack, write_array, native_available
-from .profiling import StageTimer, Cost, decompose_cost, wow_cost, roofline
+from .profiling import (StageTimer, Cost, decompose_cost, wow_cost,
+                        roofline, peak_for)
+from .compile_cache import enable_compile_cache
 
 __all__ = [
     "compute_noise_weights",
@@ -15,6 +17,8 @@ __all__ = [
     "decompose_cost",
     "wow_cost",
     "roofline",
+    "peak_for",
+    "enable_compile_cache",
     # watroo.utils module-path compatibility (lazy: avoids import cycles)
     "denoise",
     "wow",
